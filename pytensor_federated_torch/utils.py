@@ -1,0 +1,79 @@
+"""Shared constants, device resolution and a minimal pytree walker.
+
+The port keeps its own copy of what it needs from the JAX package's
+``utils.py`` (it imports nothing from that package), and replaces
+``jax.tree_util`` with the small walkers below: parameter and shard
+trees in this package are nested tuples, lists and dicts of tensors,
+and that is all they need to walk.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+# Shared Gaussian constant — single definition for every model/kernel.
+LOG_2PI = math.log(2.0 * math.pi)
+
+
+def resolve_device(device: Any = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless told otherwise.
+
+    Raises when CUDA is asked for (explicitly, or by passing ``None``)
+    and no CUDA device is present — an entry point never carries on
+    quietly on the CPU; callers that mean the CPU pass ``device="cpu"``.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def tree_structure(tree: Any) -> Any:
+    """A hashable description of the container layout (leaves elided).
+
+    Dict keys are sorted, as ``jax.tree_util`` orders them."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_structure(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(tree_structure(t) for t in tree))
+    return "*"
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """Leaves in ``jax.tree_util.tree_leaves`` order (sorted dict keys)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over trees of one structure, visiting leaves
+    in :func:`tree_leaves` order (so ``fn`` may consume an iterator)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(
+            tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)
+        )
+    return fn(tree, *rest)
+
+
+def value_and_grad(fn: Callable[[Any], torch.Tensor], params: Any) -> Tuple[torch.Tensor, Any]:
+    """``(fn(params), d fn / d params)`` by one reverse pass.
+
+    ``params`` is a tree of tensors; the gradient has its structure.
+    Inputs are detached first, so the call never writes into the
+    caller's autograd graph."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    value = fn(leaves)
+    grads = torch.autograd.grad(value, tree_leaves(leaves))
+    it = iter(grads)
+    return value.detach(), tree_map(lambda _: next(it), leaves)

@@ -1,0 +1,104 @@
+"""The Hopper kernel on the card, against its plain PyTorch version.
+
+Marked ``gpu``: each test decides inside itself whether a CUDA device is
+present and skips without one, so on the CPU these count as skips.  The
+GPU host has no JAX, and ``tests/conftest.py`` imports it, so this file
+imports neither and runs there as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances against the float64 plain version on the same float32
+inputs: rtol 2e-5 on ll (every term has the same sign); on the gradient
+reductions, which may cancel, 2e-5 times the sum of the terms'
+magnitudes (the kernel sums float32 terms at most ~40 deep, worst case
+~3e-6 of that sum).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pytensor_federated_torch.ops.linreg_kernel import (
+    linreg_logp_grad_fn,
+    linreg_reductions,
+    linreg_reductions_ref,
+)
+from pytensor_federated_torch.utils import value_and_grad
+
+SHAPES = [(1, 8), (5, 70), (8, 512), (12, 700), (8, 64), (5, 4099), (3, 20000)]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; runs on the GPU host")
+    return torch.device("cuda")
+
+
+def _case(S, N, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(S, N)).astype(np.float32)
+    y = (1.0 + 2.0 * x + 0.3 * rng.normal(size=(S, N))).astype(np.float32)
+    mask = (rng.uniform(size=(S, N)) > 0.25).astype(np.float32)
+    scalars = np.array([0.7, 1.8, -0.2], np.float32)
+    offsets = rng.normal(size=S).astype(np.float32)
+    return [torch.tensor(a, device=dev) for a in (scalars, offsets, x, y, mask)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,N", SHAPES)
+def test_kernel_matches_plain_version(S, N):
+    args = _case(S, N, _cuda())
+    before = linreg_reductions.launches
+    got = linreg_reductions(*args)
+    again = linreg_reductions(*args)
+    assert linreg_reductions.launches == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)  # no float atomics: reruns are bitwise equal
+    scal, offs, x, y, m = (a.double().cpu() for a in args)
+    ref = linreg_reductions_ref(scal, offs, x, y, m)
+    np.testing.assert_allclose(got[0].cpu().double(), ref[0], rtol=2e-5)
+    inv_s2 = torch.exp(-2.0 * scal[2])
+    r = y - ((scal[0] + offs[:, None]) + scal[1] * x)
+    sum_abs = [
+        (m * r.abs()).sum(1) * inv_s2,
+        (m * (r * x).abs()).sum(1) * inv_s2,
+        (m * (r * r * inv_s2 - 1.0).abs()).sum(1),
+    ]
+    for g, want, scale in zip(got[1:], ref[1:], sum_abs):
+        assert torch.all((g.cpu().double() - want).abs() <= 2e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_data_logp_gradient_matches_cpu_path():
+    """value and gradient through the autograd Function on the card equal
+    the CPU path (the plain version) at rtol 5e-5 / 5e-4."""
+    dev = _cuda()
+    _, offs, x, y, m = _case(6, 3000, dev, seed=3)
+    params = {"intercept": 0.4, "slope": 1.7, "log_sigma": -0.3}
+    p_gpu = {k: torch.tensor(v, device=dev) for k, v in params.items()}
+    p_gpu["offsets"] = offs * 0.1
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
+    gv, gg = linreg_logp_grad_fn(x, y, m)(p_gpu)
+    cv, cg = linreg_logp_grad_fn(x.cpu(), y.cpu(), m.cpu())(p_cpu)
+    np.testing.assert_allclose(gv.cpu(), cv, rtol=5e-5)
+    for k in cg:
+        np.testing.assert_allclose(gg[k].cpu(), cg[k], rtol=5e-4, atol=5e-4)
+    p = {k: v.detach().requires_grad_(True) for k, v in p_gpu.items()}
+    fn = linreg_logp_grad_fn(x, y, m)
+    with pytest.raises(RuntimeError, match="second-order"):
+        torch.autograd.grad(fn.data_logp(p), list(p.values()), create_graph=True)
+    value_and_grad(fn.data_logp, p_gpu)  # the plain call still works after
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["float64", "non-contiguous"])
+def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad):
+    args = _case(4, 64, _cuda())
+    if bad == "float64":
+        args[2] = args[2].double()
+        with pytest.raises(TypeError):
+            linreg_reductions(*args)
+    else:
+        args[2] = torch.empty((64, 4), device=args[2].device).T
+        with pytest.raises(ValueError):
+            linreg_reductions(*args)
