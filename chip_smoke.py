@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --only kernels   # device, build and kernels
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  It takes no
@@ -14,7 +15,9 @@ arguments and needs one card.  Phases, one JSON line each:
 3. ``kernels`` — the kernel against its plain PyTorch version run in
    float64 on the same inputs, at every shape the tests and the main
    path use and at two realistic sizes; padding inertness; bitwise
-   identical reruns; times (CUDA events, median) beside the bound.
+   identical reruns, and the same bits from a grid capped to a few
+   blocks; calls on two streams; CUDA launches per call (profiler);
+   times (CUDA events, median) beside the bound.
 4. ``autograd`` — value and gradient of ``prior + data_logp(kernel)`` at
    the flagship size against plain autograd and the sufficient-statistic
    form, at the origin and at a perturbed point; double backward raises.
@@ -31,13 +34,16 @@ arguments and needs one card.  Phases, one JSON line each:
    600 warmup draws straightens the ridge.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
-device line.  Any failed phase makes the script exit non-zero; without
+device line.  With ``--only kernels`` it stops after the kernels phase
+and prints neither the kernel record line nor the device line.  Any
+failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
 non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -102,8 +108,10 @@ def _peak(name: str) -> tuple[str, float, float]:
 
 
 def _bound(S, N, bw, flops):
-    """Least time (ms) for one call at (S, N), and what sets it."""
-    nbytes = 12 * S * N + 16 * S
+    """Least time (ms) for one call at (S, N), and what sets it: x, y and
+    mask (12 S N bytes), the offsets and the three scalars read once, the
+    (S, 4) result and the four totals written once."""
+    nbytes = 12 * S * N + 4 * S + 12 + 16 * (S + 1)
     t_bytes = nbytes / bw * 1e3
     t_ops = _FLOPS_PER_OBS * S * N / flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
@@ -165,34 +173,68 @@ def _time_ms(fn, flush, *, reps=50):
     return statistics.median(times)
 
 
+def _cuda_launches_per_call(fn, calls=10):
+    """Device launches per call of ``fn``, counted by the profiler (the
+    kernels, memsets and copies it records on the card), and their
+    names; ``None`` when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        return None, []
+    return len(on_card) / calls, sorted(set(on_card))
+
+
 def phase_kernels(bw, flops):
+    from pytensor_federated_torch.ops import linreg_kernel
     from pytensor_federated_torch.ops.linreg_kernel import (
         linreg_reductions,
+        linreg_reductions_and_totals,
         linreg_reductions_ref,
     )
 
     dev = torch.device("cuda")
+    lib = linreg_kernel._kernel_lib()
     flush = torch.empty(512 * 1024 * 1024, dtype=torch.float32, device=dev)  # 2 GiB
     records, ok = [], True
     shapes = TEST_SHAPES + [FLAGSHIP, LARGE_PATH] + REALISTIC
     for i, (S, N) in enumerate(shapes):
         inputs = _case(S, N, seed=i, device=dev)
-        got = linreg_reductions(*inputs)
+        got, totals = linreg_reductions_and_totals(*inputs)
         again = linreg_reductions(*inputs)
+        # The same call on a grid capped to 3 blocks: partials are kept per
+        # tile and summed in tile order, so the bits must not change.
+        capped = linreg_kernel._launch(inputs[0].unbind(), *inputs[1:], max_blocks=3)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        grid_bits = all(torch.equal(a, capped[:S, k]) for k, a in enumerate(got)) and torch.equal(
+            totals, capped[S]
+        )
+        per_shard = torch.stack(got, dim=1).double()
+        totals_ok = bool(
+            ((totals.double() - per_shard.sum(0)).abs() <= 4e-6 * per_shard.abs().sum(0)).all()
+        )
         ratios, max_abs = _errors(got, inputs)
         rec = {
             "shape": [S, N],
             "max_abs_err": max_abs,
             "err_over_tol": ratios,
             "bitwise_rerun": bitwise,
+            "bits_equal_capped_grid": grid_bits,
+            "totals_ok": totals_ok,
         }
-        passed = bitwise and all(v <= 1.0 for v in ratios.values())
+        passed = bitwise and grid_bits and totals_ok and all(v <= 1.0 for v in ratios.values())
         if (S, N) in [FLAGSHIP, LARGE_PATH] + REALISTIC:
             rec["ms"] = _time_ms(lambda: linreg_reductions(*inputs), flush)
             rec["plain_ms"] = _time_ms(lambda: linreg_reductions_ref(*inputs), flush)
             rec["bound_ms"], rec["bound_by"], rec["bytes"] = _bound(S, N, bw, flops)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rec["ok"] = passed
         ok &= passed
         records.append(rec)
@@ -209,7 +251,7 @@ def phase_kernels(bw, flops):
     pad_ok = all(v <= 1.0 for v in ratios.values()) and all(
         bool((g[5:] == 0).all()) for g in got
     )
-    # Rows whose float4 alignment differs between x, y and mask take the
+    # Rows whose 16-byte alignment differs between x, y and mask take the
     # scalar path.
     storage = torch.empty(5 * 70 + 1, device=dev)
     storage[1:].copy_(x.reshape(-1))
@@ -217,17 +259,58 @@ def phase_kernels(bw, flops):
     got = linreg_reductions(scalars, offsets, x_shifted, y, mask)
     ratios_shift, _ = _errors(got, (scalars, offsets, x, y, mask))
     shift_ok = all(v <= 1.0 for v in ratios_shift.values())
-    ok &= pad_ok and shift_ok
+
+    # Back-to-back calls on two streams, free to overlap on the card: each
+    # stream keeps its own ticket, so every call gives the bits of a call
+    # made alone.
+    pair = [_case(*REALISTIC[0], seed=200 + k, device=dev) for k in range(2)]
+    want = [linreg_reductions(*args) for args in pair]
+    streams = [torch.cuda.Stream(dev) for _ in pair]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    results = [[], []]
+    for _ in range(8):
+        for k, (st, args) in enumerate(zip(streams, pair)):
+            with torch.cuda.stream(st):
+                results[k].append(linreg_reductions(*args))
+    torch.cuda.synchronize()
+    streams_ok = all(
+        all(torch.equal(g, w) for g, w in zip(res, want[k]))
+        for k in range(2) for res in results[k]
+    )
+
+    # CUDA launches per call, from the profiler: of the wrapper, and of the
+    # main path's forward (data_logp under no_grad: the kernel alone).
+    inputs = _case(*LARGE_PATH, seed=300, device=dev)
+    per_call, names = _cuda_launches_per_call(lambda: linreg_reductions(*inputs))
+    _, _, kern, _ = _flagship(FLAGSHIP[1])
+    params = {"intercept": inputs[0][0], "slope": inputs[0][1], "log_sigma": inputs[0][2],
+              "offsets": torch.zeros(8, device=dev)}
+
+    def forward():
+        with torch.no_grad():
+            kern.data_logp(params)
+
+    per_forward, forward_names = _cuda_launches_per_call(forward)
+    launches_ok = per_call == 1 and per_forward == 1
+    ok &= pad_ok and shift_ok and streams_ok and launches_ok
     return ok, {
         "phase": "kernels",
         "kernel": "linreg_reductions",
         "tolerance": {k: {"kind": v[0], "value": v[1]} for k, v in TOL.items()},
+        "totals_tolerance": "4e-6 x sum over shards of |per-shard output| (float64 sum)",
+        "tile": lib.linreg_tile(),
+        "persistent_blocks": lib.linreg_persistent_blocks(),
         "shapes": records,
         "padding_inert": pad_ok,
         "scalar_path_ok": shift_ok,
-        "bound_note": "the larger of 12*S*N bytes read + 16*S written over the peak "
-                      f"memory rate and {_FLOPS_PER_OBS}*S*N float32 operations over the "
-                      "peak float32 rate",
+        "two_streams_ok": streams_ok,
+        "cuda_launches_per_call": per_call,
+        "cuda_launches_per_forward": per_forward,
+        "device_activity": sorted(set(names) | set(forward_names)),
+        "bound_note": "the larger of 12*S*N + 4*S + 12 bytes read and 16*(S+1) written over "
+                      f"the peak memory rate and {_FLOPS_PER_OBS}*S*N float32 operations over "
+                      "the peak float32 rate",
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
     }
@@ -357,6 +440,10 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", choices=["kernels"],
+                        help="stop after the kernels phase (device, build, kernels)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
@@ -396,6 +483,8 @@ def main() -> int:
         ("nuts_large",
          lambda: phase_nuts("nuts_large", LARGE_PATH[1], 1, 600, 300, dense_mass=True)),
     ]
+    if args.only == "kernels":
+        phases = phases[:1]
     all_ok, lines = True, {}
     for pname, fn in phases:
         try:
@@ -407,6 +496,8 @@ def main() -> int:
         emit(line)
         lines[pname] = line
         all_ok &= ok
+    if args.only:
+        return 0 if all_ok else 1
 
     large = next(
         (r for r in lines["kernels"].get("shapes", []) if r["shape"] == list(LARGE_PATH)), {}
@@ -418,6 +509,7 @@ def main() -> int:
         "replaces": "pytensor_federated_tpu/ops/pallas_kernels.py:78",
         # Counted from zero just before each NUTS phase, read just after.
         "launches": sum(lines[p].get("kernel_launches", 0) for p in ("nuts", "nuts_large")),
+        "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),
         "max_abs_err": large.get("max_abs_err"),
         "ms": large.get("ms"),

@@ -10,28 +10,67 @@
 //     gx_s  = sum m * r * x / sigma^2
 //     gz_s  = sum m * (z2 - 1)
 //
+// and the four totals over shards, sum_s (ll_s, gmu_s, gx_s, gz_s).
+//
 // What bounds it: device-memory bytes.  A call reads x, y and mask once,
-// 12*S*N bytes, and writes 16*S bytes of results; it does about 15 float
-// operations for those 12 bytes, two orders of magnitude below the H100's
-// float32 operations-per-byte balance.  So the design streams every input
-// byte exactly once, with 16-byte loads where the three rows are equally
-// aligned, and spreads the observation axis over blocks of kChunk
-// observations so that even 8 shards fill every SM (the TPU kernel walked
-// that axis in order on one core).  Each block writes one float4 of
-// partial sums; a second small kernel reduces a shard's partials in a
-// fixed order.  No float atomics anywhere: reruns are bitwise identical.
+// 12*S*N bytes, and writes 16*(S+1) bytes of results; it does about 17
+// float operations for those 12 bytes, two orders of magnitude below the
+// H100's float32 operations-per-byte balance.  The design keeps the
+// memory pipe full from the first cycle to the last, in one launch:
+//
+// - Tiles.  Each shard's row of N observations is cut into tiles of kTile
+//   observations (the last one ragged); tile t = s * tiles_per_row + c.
+//   A tile's four sums go to partials[t], one float4.
+// - Persistent grid.  min(n_tiles, blocks-per-SM x SMs) blocks, the
+//   blocks per SM from the occupancy of this kernel at its shared-memory
+//   size.  Block b walks tiles b, b + gridDim.x, b + 2 gridDim.x, ...
+// - TMA ring.  Each block keeps kStages stages of (x, y, mask) tiles in
+//   dynamic shared memory.  Thread 0 fills a stage with three 1-D bulk
+//   copies (cp.async.bulk ... mbarrier::complete_tx::bytes) and the whole
+//   block reads it once the stage's mbarrier completes; the stage is
+//   refilled after the __syncthreads of the tile's block sum, so up to
+//   kStages tiles (3 x 48 KB, one block per SM) are in flight while the
+//   block computes.  The copies ask L2 to evict their lines first: the
+//   inputs are read once.  A bulk copy needs 16-byte-aligned addresses and
+//   sizes, so a tile takes the ring only when it is full and its three
+//   rows start on a 16-byte boundary; every other tile (a row's ragged
+//   tail, rows of a width that is not a multiple of 4, rows of x, y and
+//   mask aligned differently) is read with scalar loads in registers.
+// - One launch.  After its last tile each block draws an integer ticket
+//   (an acq_rel atomic add on an unsigned int, which also publishes the
+//   block's partials).  The block that draws
+//   the last ticket reads every partial back from L2 (__ldcg), sums each
+//   shard's partials, writes the (S, 4) result and the four totals, and
+//   puts the ticket back to 0 for the next call on its stream.
+//
+// Why reruns are bitwise equal, whatever the grid: a tile's sum depends
+// only on the tile (its path is chosen from its length and addresses;
+// each thread sums at most kTile / kThreads terms in a fixed order, then
+// a fixed shuffle tree and a fixed tree over the warps), the partials are
+// kept per tile and not per block, and the last block sums them in an
+// order fixed by (S, tiles_per_row) alone.  The ticket decides only which
+// block finishes, never the order of a float sum; there are no float
+// atomics.  The same inputs therefore give the same bits on any grid size
+// and any SM count.
 //
 // The scalars (intercept, slope, log_sigma) and the offsets are read from
-// device memory, so a call needs no host copy of the parameters.  The
-// kernel masks the ragged end of each row itself; nothing is padded.
+// device memory, so a call needs no host copy of the parameters.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kChunk = 4096;   // observations per block; a multiple of 4
+constexpr int kThreads = 256;                     // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 4096;                       // observations per tile
+constexpr int kPerThread = kTile / kThreads;      // 16 terms per thread
+constexpr int kVec = kPerThread / 4;              // float4 per array
+constexpr int kStages = 3;                        // ring depth
+constexpr uint32_t kArrayBytes = kTile * 4;       // 16 KB
+constexpr uint32_t kStageBytes = 3 * kArrayBytes; // 48 KB: x, y, mask
+constexpr int kSmemBytes = kStages * kStageBytes; // 144 KB, dynamic
+constexpr int kMaxDevices = 64;
 constexpr float kHalfLog2Pi = 0.918938533204672741780329736406f;
 
 struct Acc {
@@ -63,8 +102,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Sum over the block in a fixed order (shuffle tree within each warp, then
 // the warp sums by the first warp).  The result is valid in thread 0.
-__device__ __forceinline__ Acc block_sum(Acc a) {
-  __shared__ float sh[4][kThreads / 32];
+// `sh` must not be written again until every thread has passed one more
+// __syncthreads: callers alternate between two buffers.
+__device__ __forceinline__ Acc block_sum(Acc a, float (*sh)[kWarps]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   a.ll = warp_sum(a.ll);
@@ -80,7 +120,7 @@ __device__ __forceinline__ Acc block_sum(Acc a) {
   __syncthreads();
   Acc t = {0.f, 0.f, 0.f, 0.f};
   if (warp == 0) {
-    const bool live = lane < kThreads / 32;
+    const bool live = lane < kWarps;
     t.ll = warp_sum(live ? sh[0][lane] : 0.f);
     t.gmu = warp_sum(live ? sh[1][lane] : 0.f);
     t.gx = warp_sum(live ? sh[2][lane] : 0.f);
@@ -89,115 +129,302 @@ __device__ __forceinline__ Acc block_sum(Acc a) {
   return t;
 }
 
-// grid = (n_chunks, n_shards): block (c, s) reduces observations
-// [c*kChunk, min((c+1)*kChunk, n_obs)) of shard s into partials[s, c].
-__global__ void __launch_bounds__(kThreads)
-    linreg_partials(const float* __restrict__ scalars,
-                    const float* __restrict__ offsets,
-                    const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ m, float4* __restrict__ partials,
-                    int64_t n_obs, int n_chunks) {
-  const int s = blockIdx.y;
-  const int c = blockIdx.x;
-  const float log_sigma = scalars[2];
-  const Scalars p = {scalars[0] + offsets[s], scalars[1],
-                     expf(-2.0f * log_sigma), log_sigma + kHalfLog2Pi};
+// --- mbarrier and bulk-copy primitives (PTX) ------------------------------
 
-  const int64_t row = static_cast<int64_t>(s) * n_obs;
-  const float* xr = x + row;
-  const float* yr = y + row;
-  const float* mr = m + row;
-  const int64_t lo = static_cast<int64_t>(c) * kChunk;
-  const int64_t hi = lo + kChunk < n_obs ? lo + kChunk : n_obs;
-
-  Acc acc = {0.f, 0.f, 0.f, 0.f};
-  // 16-byte loads need the three rows at the same offset modulo 16 bytes;
-  // a row of a tensor whose width is not a multiple of 4 starts unaligned,
-  // so a short scalar head brings the vector part onto the boundary.
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(xr + lo) & 15u;
-  const bool vec = (reinterpret_cast<uintptr_t>(yr + lo) & 15u) == mis &&
-                   (reinterpret_cast<uintptr_t>(mr + lo) & 15u) == mis;
-  int64_t vlo = hi, nvec = 0;
-  if (vec) {
-    const int64_t head = static_cast<int64_t>(((16u - mis) & 15u) >> 2);
-    vlo = lo + head < hi ? lo + head : hi;
-    nvec = (hi - vlo) >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(xr + vlo);
-    const float4* y4 = reinterpret_cast<const float4*>(yr + vlo);
-    const float4* m4 = reinterpret_cast<const float4*>(mr + vlo);
-#pragma unroll 4
-    for (int64_t i = threadIdx.x; i < nvec; i += kThreads) {
-      const float4 xv = x4[i];
-      const float4 yv = y4[i];
-      const float4 mv = m4[i];
-      accumulate(acc, xv.x, yv.x, mv.x, p);
-      accumulate(acc, xv.y, yv.y, mv.y, p);
-      accumulate(acc, xv.z, yv.z, mv.z, p);
-      accumulate(acc, xv.w, yv.w, mv.w, p);
-    }
-  } else {
-    vlo = lo;
-  }
-  // Scalar head [lo, vlo) and tail [vlo + 4*nvec, hi): the whole range
-  // when the rows cannot be read as float4.
-  for (int64_t j = lo + threadIdx.x; j < vlo; j += kThreads)
-    accumulate(acc, xr[j], yr[j], mr[j], p);
-  for (int64_t j = vlo + 4 * nvec + threadIdx.x; j < hi; j += kThreads)
-    accumulate(acc, xr[j], yr[j], mr[j], p);
-
-  const Acc t = block_sum(acc);
-  if (threadIdx.x == 0)
-    partials[static_cast<int64_t>(s) * n_chunks + c] =
-        make_float4(t.ll, t.gmu, t.gx, t.gz);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// grid = n_shards: block s sums partials[s, :] in a fixed order and
-// writes out[s] = (ll, gmu, gx, gz).
-__global__ void __launch_bounds__(kThreads)
-    linreg_finalize(const float* __restrict__ scalars,
-                    const float4* __restrict__ partials,
-                    float4* __restrict__ out, int n_chunks) {
-  const int s = blockIdx.x;
-  Acc acc = {0.f, 0.f, 0.f, 0.f};
-  for (int c = threadIdx.x; c < n_chunks; c += kThreads) {
-    const float4 v = partials[static_cast<int64_t>(s) * n_chunks + c];
-    acc.ll += v.x;
-    acc.gmu += v.y;
-    acc.gx += v.z;
-    acc.gz += v.w;
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The inputs are read once: each copy asks L2 to evict its lines first.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// --- the kernel ------------------------------------------------------------
+
+struct Tile {
+  int s;           // shard (row)
+  int64_t lo;      // first observation of the tile in its row
+  int n;           // observations in the tile
+  bool ring;       // read through the TMA ring
+};
+
+__device__ __forceinline__ Tile tile_at(int t, int tiles_per_row,
+                                        int64_t n_obs, const float* x,
+                                        const float* y, const float* m) {
+  Tile tl;
+  tl.s = t / tiles_per_row;
+  tl.lo = static_cast<int64_t>(t - tl.s * tiles_per_row) * kTile;
+  const int64_t left = n_obs - tl.lo;
+  tl.n = left < kTile ? static_cast<int>(left) : kTile;
+  const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x + off) |
+                          reinterpret_cast<uintptr_t>(y + off) |
+                          reinterpret_cast<uintptr_t>(m + off);
+  tl.ring = tl.n == kTile && (align & 15u) == 0;
+  return tl;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    linreg_reductions_kernel(const float* __restrict__ intercept,
+                             const float* __restrict__ slope,
+                             const float* __restrict__ log_sigma,
+                             const float* __restrict__ offsets,
+                             const float* __restrict__ x,
+                             const float* __restrict__ y,
+                             const float* __restrict__ m,
+                             float4* __restrict__ partials,
+                             float4* __restrict__ out,
+                             unsigned int* __restrict__ ticket, int n_shards,
+                             int64_t n_obs, int tiles_per_row) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ float sh[2][4][kWarps];
+  __shared__ bool last;
+
+  const int tid = threadIdx.x;
+  const int n_tiles = n_shards * tiles_per_row;
+  const float ls = __ldg(log_sigma);
+  const float b0 = __ldg(intercept);
+  const float b1 = __ldg(slope);
+  const float inv_s2 = expf(-2.0f * ls);
+
+  // Producer state (thread 0 only): the next tile of this block to look
+  // at, and how many ring tiles it has issued.  Consumer state (every
+  // thread, in step): how many ring tiles the block has consumed.
+  int next = blockIdx.x;
+  int issued = 0;
+  int consumed = 0;
+  auto produce = [&]() {
+    while (next < n_tiles && issued - consumed < kStages) {
+      const Tile tl = tile_at(next, tiles_per_row, n_obs, x, y, m);
+      next += gridDim.x;
+      if (!tl.ring) continue;
+      const int stage = issued % kStages;
+      unsigned char* dst = ring + stage * kStageBytes;
+      const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
+      mbar_expect_tx(&full[stage], kStageBytes);
+      bulk_load(dst, x + off, kArrayBytes, &full[stage]);
+      bulk_load(dst + kArrayBytes, y + off, kArrayBytes, &full[stage]);
+      bulk_load(dst + 2 * kArrayBytes, m + off, kArrayBytes, &full[stage]);
+      ++issued;
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    produce();
   }
-  const Acc t = block_sum(acc);
-  if (threadIdx.x == 0) {
-    const float inv_s2 = expf(-2.0f * scalars[2]);
-    out[s] = make_float4(t.ll, t.gmu * inv_s2, t.gx * inv_s2, t.gz);
+  __syncthreads();
+
+  int i = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
+    const Tile tl = tile_at(t, tiles_per_row, n_obs, x, y, m);
+    const Scalars p = {b0 + __ldg(offsets + tl.s), b1, inv_s2,
+                       ls + kHalfLog2Pi};
+    Acc acc = {0.f, 0.f, 0.f, 0.f};
+    if (tl.ring) {
+      const int stage = consumed % kStages;
+      mbar_wait(&full[stage], (consumed / kStages) & 1);
+      const float4* xs = reinterpret_cast<const float4*>(ring + stage * kStageBytes);
+      const float4* ys = xs + kTile / 4;
+      const float4* ms = ys + kTile / 4;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const int j = tid + k * kThreads;
+        const float4 xv = xs[j];
+        const float4 yv = ys[j];
+        const float4 mv = ms[j];
+        accumulate(acc, xv.x, yv.x, mv.x, p);
+        accumulate(acc, xv.y, yv.y, mv.y, p);
+        accumulate(acc, xv.z, yv.z, mv.z, p);
+        accumulate(acc, xv.w, yv.w, mv.w, p);
+      }
+      ++consumed;
+    } else {
+      const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        const int j = tid + k * kThreads;
+        if (j < tl.n) accumulate(acc, x[off + j], y[off + j], m[off + j], p);
+      }
+    }
+    // Every thread has read its stage before the __syncthreads inside
+    // block_sum, so thread 0 may refill the stage after it.
+    const Acc sum = block_sum(acc, sh[i & 1]);
+    if (tid == 0) {
+      partials[t] = make_float4(sum.ll, sum.gmu, sum.gx, sum.gz);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      produce();
+    }
   }
+
+  // Draw a ticket; the block that draws the last one finishes the call.
+  // The ticket is an acq_rel atomic: it releases this block's partials
+  // (all written by thread 0) and, in the last block, acquires every
+  // other block's; the __syncthreads passes them on to the block.
+  if (tid == 0) {
+    unsigned int prev;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;\n"
+                 : "=r"(prev)
+                 : "l"(ticket)
+                 : "memory");
+    last = prev == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // Each shard's partials are summed by a group of G lanes (G a power of
+  // two, at most 32, fixed by n_shards and tiles_per_row): lane l of the
+  // group takes tiles l, l + G, ... in order, then a shuffle tree over the
+  // group.  Rounds run in lockstep over the whole block so that every lane
+  // of a warp reaches every shuffle.
+  int G = 1;
+  while (G < 32 && G < tiles_per_row && G * 2 * n_shards <= kThreads) G *= 2;
+  const int groups = kThreads / G;
+  const int g = tid / G;
+  const int lane = tid % G;
+  Acc tot = {0.f, 0.f, 0.f, 0.f};
+  for (int base = 0; base < n_shards; base += groups) {
+    const int s = base + g;
+    Acc a = {0.f, 0.f, 0.f, 0.f};
+    if (s < n_shards) {
+      const float4* ps = partials + static_cast<int64_t>(s) * tiles_per_row;
+#pragma unroll 4
+      for (int c = lane; c < tiles_per_row; c += G) {
+        const float4 v = __ldcg(ps + c);
+        a.ll += v.x;
+        a.gmu += v.y;
+        a.gx += v.z;
+        a.gz += v.w;
+      }
+    }
+    for (int o = G / 2; o > 0; o >>= 1) {
+      a.ll += __shfl_down_sync(0xffffffffu, a.ll, o, G);
+      a.gmu += __shfl_down_sync(0xffffffffu, a.gmu, o, G);
+      a.gx += __shfl_down_sync(0xffffffffu, a.gx, o, G);
+      a.gz += __shfl_down_sync(0xffffffffu, a.gz, o, G);
+    }
+    if (lane == 0 && s < n_shards) {
+      const float4 r = make_float4(a.ll, a.gmu * inv_s2, a.gx * inv_s2, a.gz);
+      out[s] = r;
+      tot.ll += r.x;
+      tot.gmu += r.y;
+      tot.gx += r.z;
+      tot.gz += r.w;
+    }
+  }
+  // The totals: each group leader's running sum over its shards, then the
+  // fixed block tree.  The other lanes add zeros, which is exact.
+  const Acc t = block_sum(tot, sh[i & 1]);
+  if (tid == 0) {
+    out[n_shards] = make_float4(t.ll, t.gmu, t.gx, t.gz);
+    *ticket = 0u;
+  }
+}
+
+int g_blocks[kMaxDevices];  // persistent grid per device; 0 = not yet known
+
+// Blocks of the persistent grid on the current device: the blocks per SM
+// that the occupancy calculator allows at this kernel's registers and
+// shared memory, times the SM count.  Returns a negative CUDA error on
+// failure.
+int persistent_blocks() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (dev < kMaxDevices && g_blocks[dev] > 0) return g_blocks[dev];
+  err = cudaFuncSetAttribute(linreg_reductions_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, linreg_reductions_kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  const int blocks = per_sm * sms;
+  if (dev < kMaxDevices) g_blocks[dev] = blocks;
+  return blocks;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Observations per block of the first kernel: the wrapper sizes the
-// partials scratch as (n_shards, ceil(n_obs / chunk), 4).
-int linreg_chunk() { return kChunk; }
+// Observations per tile: the wrapper sizes the partials scratch as
+// (n_shards * ceil(n_obs / tile), 4) floats.
+int linreg_tile() { return kTile; }
 
-// Enqueues both kernels on `stream`; returns cudaGetLastError() (0 when
-// both launches were accepted).  All pointers are device pointers to
-// contiguous float32: scalars (3,), offsets (S,), x/y/m (S, N),
-// partials (S, n_chunks, 4), out (S, 4), the last two 16-byte aligned.
-int linreg_reductions_launch(const float* scalars, const float* offsets,
+// Blocks of the persistent grid on the current device (negative: a CUDA
+// error code, negated).
+int linreg_persistent_blocks() { return persistent_blocks(); }
+
+// Enqueues the kernel on `stream`, once; returns cudaGetLastError() (0
+// when the launch was accepted).  All pointers are device pointers:
+// intercept, slope and log_sigma to one float32 each; offsets (S,);
+// x, y, m (S, N) contiguous float32; partials (S * tiles_per_row, 4) and
+// out (S + 1, 4) float32, 16-byte aligned; ticket one unsigned int that is
+// 0 and that no call on another stream uses at the same time.  Row S of
+// out receives the totals.  max_blocks > 0 caps the grid (a check that
+// the result's bits do not depend on the grid uses it); 0 launches the
+// persistent grid.
+int linreg_reductions_launch(const float* intercept, const float* slope,
+                             const float* log_sigma, const float* offsets,
                              const float* x, const float* y, const float* m,
-                             float* partials, float* out, int n_shards,
-                             long long n_obs, int n_chunks, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  linreg_partials<<<dim3(n_chunks, n_shards), kThreads, 0, st>>>(
-      scalars, offsets, x, y, m, reinterpret_cast<float4*>(partials), n_obs,
-      n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  linreg_finalize<<<n_shards, kThreads, 0, st>>>(
-      scalars, reinterpret_cast<const float4*>(partials),
-      reinterpret_cast<float4*>(out), n_chunks);
+                             float* partials, float* out,
+                             unsigned int* ticket, int n_shards,
+                             long long n_obs, int tiles_per_row,
+                             int max_blocks, void* stream) {
+  const int blocks = persistent_blocks();
+  if (blocks < 0) return -blocks;
+  const int n_tiles = n_shards * tiles_per_row;
+  int grid = n_tiles < blocks ? n_tiles : blocks;
+  if (max_blocks > 0 && max_blocks < grid) grid = max_blocks;
+  // Rows shorter than a tile never take the ring: no shared memory then.
+  const int smem = n_obs < kTile ? 0 : kSmemBytes;
+  linreg_reductions_kernel<<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      intercept, slope, log_sigma, offsets, x, y, m,
+      reinterpret_cast<float4*>(partials), reinterpret_cast<float4*>(out),
+      ticket, n_shards, n_obs, tiles_per_row);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -28,19 +28,22 @@ from ..utils import LOG_2PI, value_and_grad
 from . import _build
 
 Reductions = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+#: ``[intercept, slope, log_sigma]``: one ``(3,)`` tensor, or three 0-d
+#: tensors of one dtype on one device.
+Scalars = Union[torch.Tensor, Sequence[torch.Tensor]]
 
-_MAX_SHARDS = 65535  # the kernel's grid.y
+_MAX_TILES = 1 << 30  # the kernel indexes tiles with 32-bit ints
 
 
 def linreg_reductions_ref(
-    scalars: torch.Tensor,
+    scalars: Scalars,
     offsets: torch.Tensor,
     x: torch.Tensor,
     y: torch.Tensor,
     mask: torch.Tensor,
 ) -> Reductions:
     """Plain PyTorch version of the kernel, in the inputs' dtype."""
-    intercept, slope, log_sigma = scalars[0], scalars[1], scalars[2]
+    intercept, slope, log_sigma = scalars
     inv_s2 = torch.exp(-2.0 * log_sigma)
     mu = (intercept + offsets[:, None]) + slope * x
     r = y - mu
@@ -52,9 +55,22 @@ def linreg_reductions_ref(
     return ll, gmu, gx, gz
 
 
-def _check_shapes(scalars, offsets, x, y, mask) -> None:
-    if scalars.shape != (3,):
-        raise ValueError(f"scalars must have shape (3,), got {tuple(scalars.shape)}")
+def _split_scalars(scalars: Scalars) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if torch.is_tensor(scalars):
+        if scalars.shape != (3,):
+            raise ValueError(f"scalars must have shape (3,), got {tuple(scalars.shape)}")
+        return tuple(scalars.unbind())
+    parts = tuple(scalars)
+    if len(parts) != 3 or not all(torch.is_tensor(p) and p.ndim == 0 for p in parts):
+        raise ValueError("scalars must be a (3,) tensor or three 0-d tensors")
+    if len({p.dtype for p in parts}) != 1:
+        raise TypeError(f"the three scalars differ in dtype: {[p.dtype for p in parts]}")
+    if len({p.device for p in parts}) != 1:
+        raise ValueError(f"the three scalars lie on several devices: {[str(p.device) for p in parts]}")
+    return parts
+
+
+def _check_shapes(offsets, x, y, mask) -> None:
     if x.ndim != 2 or y.shape != x.shape or mask.shape != x.shape:
         raise ValueError(
             "x, y and mask must share one (S, N) shape, got "
@@ -70,65 +86,66 @@ def _check_shapes(scalars, offsets, x, y, mask) -> None:
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("linreg_reductions")
     fn = lib.linreg_reductions_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int,
         ctypes.c_longlong,
+        ctypes.c_int,
         ctypes.c_int,
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.linreg_chunk.restype = ctypes.c_int
+    lib.linreg_tile.restype = ctypes.c_int
+    lib.linreg_persistent_blocks.restype = ctypes.c_int
     lib.linreg_error_string.argtypes = [ctypes.c_int]
     lib.linreg_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def linreg_reductions(
-    scalars: torch.Tensor,
+# One ticket (an unsigned int the kernel's blocks count on) per device and
+# stream.  Calls on one stream run one after another, so each finds its
+# ticket at 0, as the previous call's last block left it; calls on two
+# streams may overlap and use two tickets.
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _launch(
+    scalars: Sequence[torch.Tensor],
     offsets: torch.Tensor,
     x: torch.Tensor,
     y: torch.Tensor,
     mask: torch.Tensor,
-) -> Reductions:
-    """Per-shard ``(ll, gmu, gx, gz)`` reductions, one fused data pass.
-
-    ``scalars = [intercept, slope, log_sigma]``; ``offsets``: ``(S,)``;
-    ``x, y, mask``: ``(S, N)``.  Returns four ``(S,)`` vectors.  On CUDA
-    every input must be contiguous float32 on one device; the kernel
-    masks the ragged observation edge itself, so nothing is padded.
-    ``linreg_reductions.launches`` counts kernel launches.
-    """
-    args = (scalars, offsets, x, y, mask)
-    _check_shapes(*args)
-    devices = {t.device for t in args}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type == "cpu":
-        return linreg_reductions_ref(*args)
-    if device.type != "cuda":
-        raise ValueError(f"linreg_reductions runs on cuda or cpu, not {device}")
+    *,
+    max_blocks: int = 0,
+) -> torch.Tensor:
+    """One launch of the kernel; returns ``(S + 1, 4)``: the per-shard
+    ``(ll, gmu, gx, gz)`` rows, then the totals.  ``max_blocks > 0``
+    caps the grid, for the check that the bits do not depend on it."""
+    args = (*scalars, offsets, x, y, mask)
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
     S, N = x.shape
-    if not 0 < S <= _MAX_SHARDS:
-        raise ValueError(f"the kernel takes 1..{_MAX_SHARDS} shards, got {S}")
-
     lib = _kernel_lib()
-    chunk = lib.linreg_chunk()
-    n_chunks = max(1, -(-N // chunk))
-    partials = torch.empty((S, n_chunks, 4), dtype=torch.float32, device=device)
-    out = torch.empty((S, 4), dtype=torch.float32, device=device)
+    tiles_per_row = max(1, -(-N // lib.linreg_tile()))
+    if not 0 < S * tiles_per_row <= _MAX_TILES:
+        raise ValueError(f"the kernel takes 1..{_MAX_TILES} tiles, got {S * tiles_per_row}")
+    device = x.device
+    partials = torch.empty((S * tiles_per_row, 4), dtype=torch.float32, device=device)
+    out = torch.empty((S + 1, 4), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        ticket = _tickets.get((device.index, stream))
+        if ticket is None:
+            ticket = torch.zeros((), dtype=torch.int32, device=device)
+            _tickets[(device.index, stream)] = ticket
         err = lib.linreg_reductions_launch(
-            *(t.data_ptr() for t in (scalars, offsets, x, y, mask, partials, out)),
+            *(t.data_ptr() for t in (*args, partials, out, ticket)),
             S,
             N,
-            n_chunks,
+            tiles_per_row,
+            max_blocks,
             stream,
         )
     if err != 0:
@@ -136,7 +153,55 @@ def linreg_reductions(
             f"linreg_reductions launch failed: {lib.linreg_error_string(err).decode()}"
         )
     linreg_reductions.launches += 1
-    return out[:, 0], out[:, 1], out[:, 2], out[:, 3]
+    return out
+
+
+def linreg_reductions_and_totals(
+    scalars: Scalars,
+    offsets: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+) -> Tuple[Reductions, torch.Tensor]:
+    """:func:`linreg_reductions` and its four totals over shards,
+    ``(sum ll, sum gmu, sum gx, sum gz)``, from one call.
+
+    On CUDA one kernel launch gives both; on the CPU the plain version
+    runs and its per-shard outputs are summed.
+    """
+    scalars = _split_scalars(scalars)
+    _check_shapes(offsets, x, y, mask)
+    devices = {t.device for t in (*scalars, offsets, x, y, mask)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        red = linreg_reductions_ref(scalars, offsets, x, y, mask)
+        return red, torch.stack(red, dim=1).sum(dim=0)
+    if device.type != "cuda":
+        raise ValueError(f"linreg_reductions runs on cuda or cpu, not {device}")
+    out = _launch(scalars, offsets, x, y, mask)
+    S = x.shape[0]
+    return (out[:S, 0], out[:S, 1], out[:S, 2], out[:S, 3]), out[S]
+
+
+def linreg_reductions(
+    scalars: Scalars,
+    offsets: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+) -> Reductions:
+    """Per-shard ``(ll, gmu, gx, gz)`` reductions, one fused data pass.
+
+    ``scalars = [intercept, slope, log_sigma]``, a ``(3,)`` tensor or
+    three 0-d tensors; ``offsets``: ``(S,)``; ``x, y, mask``: ``(S, N)``.
+    Returns four ``(S,)`` vectors.  On CUDA every input must be
+    contiguous float32 on one device; the kernel masks the ragged
+    observation edge itself, so nothing is padded.
+    ``linreg_reductions.launches`` counts kernel launches.
+    """
+    return linreg_reductions_and_totals(scalars, offsets, x, y, mask)[0]
 
 
 linreg_reductions.launches = 0
@@ -146,17 +211,17 @@ class _DataLogp(torch.autograd.Function):
     """``Σ_i ll_i`` with the gradient the forward pass already produced.
 
     The backward only scales the saved reductions by the incoming
-    cotangent: value and gradient cost ONE data pass together.
+    cotangent: value and gradient cost ONE data pass together.  On CUDA
+    the forward is the kernel's one launch: the parameters enter by
+    pointer and the kernel writes the totals.
     """
 
     @staticmethod
     def forward(ctx, intercept, slope, log_sigma, offsets, x, y, mask):
-        scalars = torch.stack([intercept, slope, log_sigma]).to(torch.float32)
-        ll, gmu, gx, gz = linreg_reductions(
-            scalars, offsets.to(torch.float32), x, y, mask
+        (_, gmu, _, _), totals = linreg_reductions_and_totals(
+            (intercept, slope, log_sigma), offsets, x, y, mask
         )
-        totals = torch.stack([ll, gmu, gx, gz], dim=1).sum(dim=0)
-        ctx.save_for_backward(totals, gmu.to(offsets.dtype))
+        ctx.save_for_backward(totals, gmu)
         return totals[0]
 
     @staticmethod

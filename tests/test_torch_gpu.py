@@ -10,22 +10,33 @@ imports neither and runs there as
 Tolerances against the float64 plain version on the same float32
 inputs: rtol 2e-5 on ll (every term has the same sign); on the gradient
 reductions, which may cancel, 2e-5 times the sum of the terms'
-magnitudes (the kernel sums float32 terms at most ~40 deep, worst case
-~3e-6 of that sum).
+magnitudes (the kernel sums float32 terms at most ~50 deep, worst case
+~3e-6 of that sum).  The totals over shards against the float64 sum of
+the kernel's own per-shard outputs: 4e-6 times the sum of their
+magnitudes (at most 24 float32 additions deep, ~1.4e-6).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pytensor_federated_torch.ops import linreg_kernel
 from pytensor_federated_torch.ops.linreg_kernel import (
     linreg_logp_grad_fn,
     linreg_reductions,
+    linreg_reductions_and_totals,
     linreg_reductions_ref,
 )
 from pytensor_federated_torch.utils import value_and_grad
 
-SHAPES = [(1, 8), (5, 70), (8, 512), (12, 700), (8, 64), (5, 4099), (3, 20000)]
+SHAPES = [
+    (1, 8), (5, 70), (8, 512), (12, 700), (8, 64), (5, 4099), (3, 20000),
+    # The persistent schedule: fewer tiles than blocks, one very long row
+    # (a ragged tail after ~977 tiles), many short rows, and a tile count
+    # (7 x 53 = 371 tiles) that the grid does not divide.
+    (2, 4100), (1, 2_000_003), (4096, 37), (7, 53 * 2048),
+]
+UNEVEN = (7, 53 * 2048)
 
 
 def _cuda():
@@ -102,3 +113,58 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad):
         args[2] = torch.empty((64, 4), device=args[2].device).T
         with pytest.raises(ValueError):
             linreg_reductions(*args)
+
+
+@pytest.mark.gpu
+def test_uneven_shape_leaves_a_partial_round():
+    """The UNEVEN shape's tile count is not a multiple of the grid."""
+    _cuda()
+    lib = linreg_kernel._kernel_lib()
+    S, N = UNEVEN
+    n_tiles = S * -(-N // lib.linreg_tile())
+    blocks = lib.linreg_persistent_blocks()
+    assert blocks > 0 and n_tiles > blocks and n_tiles % blocks != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,N", [(8, 64), (5, 4099), (4096, 37), UNEVEN, (8, 131_072)])
+def test_bits_do_not_depend_on_grid(S, N):
+    """Partials are kept per tile and summed in tile order, so a grid
+    capped to a few blocks gives the persistent grid's bits."""
+    scal, *rest = _case(S, N, _cuda(), seed=5)
+    full = linreg_kernel._launch(scal.unbind(), *rest)
+    for cap in (1, 3, 7):
+        assert torch.equal(linreg_kernel._launch(scal.unbind(), *rest, max_blocks=cap), full)
+
+
+@pytest.mark.gpu
+def test_two_streams_keep_their_tickets():
+    """Back-to-back calls on two streams, overlapping on the card, each
+    give the result of a call alone: each stream has its own ticket."""
+    dev = _cuda()
+    a = _case(8, 1 << 20, dev, seed=6)
+    b = _case(8, 1 << 20, dev, seed=7)
+    want_a, want_b = linreg_reductions(*a), linreg_reductions(*b)
+    streams = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    got = {0: [], 1: []}
+    for _ in range(10):
+        for k, (st, args) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(st):
+                got[k].append(linreg_reductions(*args))
+    torch.cuda.synchronize(dev)
+    for k, want in ((0, want_a), (1, want_b)):
+        for res in got[k]:
+            assert all(torch.equal(g, w) for g, w in zip(res, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,N", [(8, 64), (8, 131_072), (64, 65_536), (4096, 37)])
+def test_totals_equal_float64_sum_of_shards(S, N):
+    args = _case(S, N, _cuda(), seed=8)
+    red, totals = linreg_reductions_and_totals(*args)
+    per_shard = torch.stack(red, dim=1).double()
+    want = per_shard.sum(0)
+    scale = per_shard.abs().sum(0)
+    assert torch.all((totals.double() - want).abs() <= 4e-6 * scale)
