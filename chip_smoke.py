@@ -5,8 +5,8 @@
     python3 chip_smoke.py --only kernels   # device, build and kernels
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
-CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  It takes no
-arguments and needs one card.  Phases, one JSON line each:
+CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
+it runs every phase and needs one card.  Phases, one JSON line each:
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``), the
    peak memory and float32 rates the bounds use, the TF32 settings.
@@ -17,21 +17,26 @@ arguments and needs one card.  Phases, one JSON line each:
    path use and at two realistic sizes; padding inertness; bitwise
    identical reruns, and the same bits from a grid capped to a few
    blocks; calls on two streams; CUDA launches per call (profiler);
-   times (CUDA events, median) beside the bound.
+   times (CUDA events, median; and the kernel's own duration from the
+   profiler) beside the bound.
 4. ``autograd`` — value and gradient of ``prior + data_logp(kernel)`` at
    the flagship size against plain autograd and the sufficient-statistic
    form, at the origin and at a perturbed point; double backward raises.
 5. ``nuts``    — ``sample()`` with NUTS on the flagship posterior through
    the kernel, 2 chains x 300 warmup + 300 draws.
 6. ``nuts_large`` — the same at 8 x 131,072 observations, so the kernel
-   moves real bytes on every leapfrog step: 1 chain x 600 warmup + 300
+   moves real bytes on every leapfrog step: 1 chain x 600 warmup + 900
    draws with a dense mass matrix.  At this size the data pin every
    shard's intercept + offset to ~0.0014 while only the offsets' prior
    places the intercept (sd ~0.1): a ridge ~70x longer than it is wide.
    With a diagonal mass or a short warmup, the split R-hat of the
    intercept and offsets lands above 1.05 for many seeds (as with the
    JAX package's sampler on this posterior); a dense mass adapted over
-   600 warmup draws straightens the ridge.
+   600 warmup draws straightens the ridge.  Even then the draws move
+   slowly along it: with 300 draws the split R-hat of the intercept and
+   offsets varies around 1.05 from one trajectory to the next (a change
+   in the last bits of a sum is enough to move it across), so the phase
+   takes 900.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
 device line.  With ``--only kernels`` it stops after the kernels phase
@@ -66,9 +71,10 @@ _FLOPS_PER_OBS = 17
 # Kernel vs its float64 plain version.  Inputs are float32 and exact in
 # float64; the kernel computes each term in float32 (residual error about
 # eps * (|y| + |mu|), a few 1e-7 of a term here) and sums at most ~40
-# terms deep (16 per thread, then fixed trees of 256 threads and of the
-# per-block partials), so the worst-case error of a sum is ~40 eps ~ 3e-6
-# of the sum of the terms' magnitudes.
+# terms deep at these shapes (16 per thread, a fixed tree over the 256
+# threads of a tile, at most 8 tile partials per lane, a shuffle tree
+# over 32 lanes), so the worst-case error of a sum is ~40 eps ~ 3e-6 of
+# the sum of the terms' magnitudes.
 TOL = {
     # ll: every term has the same sign, so relative to |ll| itself.
     "ll": ("rel", 2e-5),
@@ -173,19 +179,35 @@ def _time_ms(fn, flush, *, reps=50):
     return statistics.median(times)
 
 
-def _cuda_launches_per_call(fn, calls=10):
-    """Device launches per call of ``fn``, counted by the profiler (the
-    kernels, memsets and copies it records on the card), and their
-    names; ``None`` when the profiler records no device activity."""
+def _card_events(fn, reps, before=None):
+    """The profiler's record of what ran on the card during ``reps`` calls
+    of ``fn`` (each after ``before()``, if given), after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+        for _ in range(reps):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
-    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_ms(fn, flush, *, reps=30):
+    """Median over ``reps`` calls of the card's own time in the kernel
+    (the profiler's kernel durations, without the launch and the event
+    overhead), with the inputs evicted from L2 before each call."""
+    times = [e.device_time for e in _card_events(fn, reps, flush.zero_) if "linreg" in e.name]
+    return statistics.median(times) / 1e3 if len(times) == reps else None
+
+
+def _cuda_launches_per_call(fn, calls=10):
+    """Device launches per call of ``fn``, counted by the profiler (the
+    kernels, memsets and copies it records on the card), and their
+    names; ``None`` when the profiler records no device activity."""
+    on_card = [e.name for e in _card_events(fn, calls)]
     if not on_card:
         return None, []
     return len(on_card) / calls, sorted(set(on_card))
@@ -232,6 +254,7 @@ def phase_kernels(bw, flops):
         passed = bitwise and grid_bits and totals_ok and all(v <= 1.0 for v in ratios.values())
         if (S, N) in [FLAGSHIP, LARGE_PATH] + REALISTIC:
             rec["ms"] = _time_ms(lambda: linreg_reductions(*inputs), flush)
+            rec["device_ms"] = _device_ms(lambda: linreg_reductions(*inputs), flush)
             rec["plain_ms"] = _time_ms(lambda: linreg_reductions_ref(*inputs), flush)
             rec["bound_ms"], rec["bound_by"], rec["bytes"] = _bound(S, N, bw, flops)
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
@@ -481,7 +504,7 @@ def main() -> int:
         ("autograd", phase_autograd),
         ("nuts", lambda: phase_nuts("nuts", FLAGSHIP[1], 2, 300, 300, dense_mass=False)),
         ("nuts_large",
-         lambda: phase_nuts("nuts_large", LARGE_PATH[1], 1, 600, 300, dense_mass=True)),
+         lambda: phase_nuts("nuts_large", LARGE_PATH[1], 1, 600, 900, dense_mass=True)),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -513,6 +536,7 @@ def main() -> int:
         "shape": list(LARGE_PATH),
         "max_abs_err": large.get("max_abs_err"),
         "ms": large.get("ms"),
+        "device_ms": large.get("device_ms"),
         "plain_ms": large.get("plain_ms"),
         "bound_ms": large.get("bound_ms"),
         "bound_by": large.get("bound_by"),

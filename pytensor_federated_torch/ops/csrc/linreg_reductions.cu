@@ -22,26 +22,26 @@
 //   observations (the last one ragged); tile t = s * tiles_per_row + c.
 //   A tile's four sums go to partials[t], one float4.
 // - Persistent grid.  min(n_tiles, blocks-per-SM x SMs) blocks, the
-//   blocks per SM from the occupancy of this kernel at its shared-memory
-//   size.  Block b walks tiles b, b + gridDim.x, b + 2 gridDim.x, ...
-// - TMA ring.  Each block keeps kStages stages of (x, y, mask) tiles in
-//   dynamic shared memory.  Thread 0 fills a stage with three 1-D bulk
-//   copies (cp.async.bulk ... mbarrier::complete_tx::bytes) and the whole
-//   block reads it once the stage's mbarrier completes; the stage is
-//   refilled after the __syncthreads of the tile's block sum, so up to
-//   kStages tiles (3 x 48 KB, one block per SM) are in flight while the
-//   block computes.  The copies ask L2 to evict their lines first: the
-//   inputs are read once.  A bulk copy needs 16-byte-aligned addresses and
-//   sizes, so a tile takes the ring only when it is full and its three
-//   rows start on a 16-byte boundary; every other tile (a row's ragged
-//   tail, rows of a width that is not a multiple of 4, rows of x, y and
-//   mask aligned differently) is read with scalar loads in registers.
+//   blocks per SM from the occupancy of this kernel at its register count
+//   (2 on the H100).  Block b walks tiles b, b + gridDim.x, ...
+// - Register pipeline.  While a block sums tile t, each of its threads
+//   already holds in registers its share of the block's next tile,
+//   t + gridDim.x: 16-byte streaming loads (ld.global.cs, lines evicted
+//   first, since the inputs are read once), 192 bytes per thread, so two
+//   blocks of 256 threads keep 96 KB in flight on every SM while they
+//   compute.  A tile is read this way when it is full and its three rows
+//   start on a 16-byte boundary; every other tile (a row's ragged tail,
+//   rows of a width that is not a multiple of 4, rows of x, y and mask
+//   aligned differently) is read with scalar loads when its turn comes.
+//   A ring of 3 x 48 KB stages in shared memory, fed by TMA bulk copies,
+//   one block per SM, gave the same bits and was slower at the main
+//   path's shapes on the H100 (PERF.md).
 // - One launch.  After its last tile each block draws an integer ticket
 //   (an acq_rel atomic add on an unsigned int, which also publishes the
-//   block's partials).  The block that draws
-//   the last ticket reads every partial back from L2 (__ldcg), sums each
-//   shard's partials, writes the (S, 4) result and the four totals, and
-//   puts the ticket back to 0 for the next call on its stream.
+//   block's partials).  The block that draws the last ticket reads every
+//   partial back from L2 (__ldcg), sums each shard's partials, writes the
+//   (S, 4) result and the four totals, and puts the ticket back to 0 for
+//   the next call on its stream.
 //
 // Why reruns are bitwise equal, whatever the grid: a tile's sum depends
 // only on the tile (its path is chosen from its length and addresses;
@@ -66,10 +66,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 4096;                       // observations per tile
 constexpr int kPerThread = kTile / kThreads;      // 16 terms per thread
 constexpr int kVec = kPerThread / 4;              // float4 per array
-constexpr int kStages = 3;                        // ring depth
-constexpr uint32_t kArrayBytes = kTile * 4;       // 16 KB
-constexpr uint32_t kStageBytes = 3 * kArrayBytes; // 48 KB: x, y, mask
-constexpr int kSmemBytes = kStages * kStageBytes; // 144 KB, dynamic
 constexpr int kMaxDevices = 64;
 constexpr float kHalfLog2Pi = 0.918938533204672741780329736406f;
 
@@ -129,58 +125,13 @@ __device__ __forceinline__ Acc block_sum(Acc a, float (*sh)[kWarps]) {
   return t;
 }
 
-// --- mbarrier and bulk-copy primitives (PTX) ------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The inputs are read once: each copy asks L2 to evict its lines first.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
-      : "memory");
-}
-
 // --- the kernel ------------------------------------------------------------
 
 struct Tile {
   int s;           // shard (row)
   int64_t lo;      // first observation of the tile in its row
   int n;           // observations in the tile
-  bool ring;       // read through the TMA ring
+  bool vec;        // full and 16-byte aligned: read as float4
 };
 
 __device__ __forceinline__ Tile tile_at(int t, int tiles_per_row,
@@ -195,11 +146,32 @@ __device__ __forceinline__ Tile tile_at(int t, int tiles_per_row,
   const uintptr_t align = reinterpret_cast<uintptr_t>(x + off) |
                           reinterpret_cast<uintptr_t>(y + off) |
                           reinterpret_cast<uintptr_t>(m + off);
-  tl.ring = tl.n == kTile && (align & 15u) == 0;
+  tl.vec = tl.n == kTile && (align & 15u) == 0;
   return tl;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// A thread's share of a full tile: float4 k of each array is at
+// threadIdx.x + k * kThreads.
+struct Regs {
+  float4 x[kVec], y[kVec], m[kVec];
+};
+
+__device__ __forceinline__ void load_tile(Regs& r, const Tile& tl,
+                                          int64_t n_obs, const float* x,
+                                          const float* y, const float* m) {
+  const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
+  const float4* x4 = reinterpret_cast<const float4*>(x + off) + threadIdx.x;
+  const float4* y4 = reinterpret_cast<const float4*>(y + off) + threadIdx.x;
+  const float4* m4 = reinterpret_cast<const float4*>(m + off) + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    r.x[k] = __ldcs(x4 + k * kThreads);
+    r.y[k] = __ldcs(y4 + k * kThreads);
+    r.m[k] = __ldcs(m4 + k * kThreads);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
     linreg_reductions_kernel(const float* __restrict__ intercept,
                              const float* __restrict__ slope,
                              const float* __restrict__ log_sigma,
@@ -211,8 +183,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                              float4* __restrict__ out,
                              unsigned int* __restrict__ ticket, int n_shards,
                              int64_t n_obs, int tiles_per_row) {
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ __align__(8) uint64_t full[kStages];
   __shared__ float sh[2][4][kWarps];
   __shared__ bool last;
 
@@ -223,59 +193,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float b1 = __ldg(slope);
   const float inv_s2 = expf(-2.0f * ls);
 
-  // Producer state (thread 0 only): the next tile of this block to look
-  // at, and how many ring tiles it has issued.  Consumer state (every
-  // thread, in step): how many ring tiles the block has consumed.
-  int next = blockIdx.x;
-  int issued = 0;
-  int consumed = 0;
-  auto produce = [&]() {
-    while (next < n_tiles && issued - consumed < kStages) {
-      const Tile tl = tile_at(next, tiles_per_row, n_obs, x, y, m);
-      next += gridDim.x;
-      if (!tl.ring) continue;
-      const int stage = issued % kStages;
-      unsigned char* dst = ring + stage * kStageBytes;
-      const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
-      mbar_expect_tx(&full[stage], kStageBytes);
-      bulk_load(dst, x + off, kArrayBytes, &full[stage]);
-      bulk_load(dst + kArrayBytes, y + off, kArrayBytes, &full[stage]);
-      bulk_load(dst + 2 * kArrayBytes, m + off, kArrayBytes, &full[stage]);
-      ++issued;
-    }
-  };
-
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(&full[i]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    produce();
-  }
-  __syncthreads();
+  // `next` holds the block's next tile once it is known to be full and
+  // aligned; `tn` describes it.
+  Regs next;
+  Tile tn = tile_at(blockIdx.x, tiles_per_row, n_obs, x, y, m);
+  if (tn.vec) load_tile(next, tn, n_obs, x, y, m);
 
   int i = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
-    const Tile tl = tile_at(t, tiles_per_row, n_obs, x, y, m);
+    const Tile tl = tn;
+    const Regs cur = next;
+    if (t + gridDim.x < n_tiles) {
+      tn = tile_at(t + gridDim.x, tiles_per_row, n_obs, x, y, m);
+      if (tn.vec) load_tile(next, tn, n_obs, x, y, m);
+    }
     const Scalars p = {b0 + __ldg(offsets + tl.s), b1, inv_s2,
                        ls + kHalfLog2Pi};
     Acc acc = {0.f, 0.f, 0.f, 0.f};
-    if (tl.ring) {
-      const int stage = consumed % kStages;
-      mbar_wait(&full[stage], (consumed / kStages) & 1);
-      const float4* xs = reinterpret_cast<const float4*>(ring + stage * kStageBytes);
-      const float4* ys = xs + kTile / 4;
-      const float4* ms = ys + kTile / 4;
+    if (tl.vec) {
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
-        const int j = tid + k * kThreads;
-        const float4 xv = xs[j];
-        const float4 yv = ys[j];
-        const float4 mv = ms[j];
-        accumulate(acc, xv.x, yv.x, mv.x, p);
-        accumulate(acc, xv.y, yv.y, mv.y, p);
-        accumulate(acc, xv.z, yv.z, mv.z, p);
-        accumulate(acc, xv.w, yv.w, mv.w, p);
+        accumulate(acc, cur.x[k].x, cur.y[k].x, cur.m[k].x, p);
+        accumulate(acc, cur.x[k].y, cur.y[k].y, cur.m[k].y, p);
+        accumulate(acc, cur.x[k].z, cur.y[k].z, cur.m[k].z, p);
+        accumulate(acc, cur.x[k].w, cur.y[k].w, cur.m[k].w, p);
       }
-      ++consumed;
     } else {
       const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
 #pragma unroll
@@ -284,14 +226,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (j < tl.n) accumulate(acc, x[off + j], y[off + j], m[off + j], p);
       }
     }
-    // Every thread has read its stage before the __syncthreads inside
-    // block_sum, so thread 0 may refill the stage after it.
     const Acc sum = block_sum(acc, sh[i & 1]);
-    if (tid == 0) {
-      partials[t] = make_float4(sum.ll, sum.gmu, sum.gx, sum.gz);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      produce();
-    }
+    if (tid == 0) partials[t] = make_float4(sum.ll, sum.gmu, sum.gx, sum.gz);
   }
 
   // Draw a ticket; the block that draws the last one finishes the call.
@@ -361,21 +297,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 int g_blocks[kMaxDevices];  // persistent grid per device; 0 = not yet known
 
 // Blocks of the persistent grid on the current device: the blocks per SM
-// that the occupancy calculator allows at this kernel's registers and
-// shared memory, times the SM count.  Returns a negative CUDA error on
-// failure.
+// that the occupancy calculator allows at this kernel's registers, times
+// the SM count.  Returns a negative CUDA error on failure.
 int persistent_blocks() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (dev < kMaxDevices && g_blocks[dev] > 0) return g_blocks[dev];
-  err = cudaFuncSetAttribute(linreg_reductions_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
-  if (err != cudaSuccess) return -static_cast<int>(err);
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, linreg_reductions_kernel, kThreads, kSmemBytes);
+      &per_sm, linreg_reductions_kernel, kThreads, 0);
   if (err != cudaSuccess) return -static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -418,9 +349,7 @@ int linreg_reductions_launch(const float* intercept, const float* slope,
   const int n_tiles = n_shards * tiles_per_row;
   int grid = n_tiles < blocks ? n_tiles : blocks;
   if (max_blocks > 0 && max_blocks < grid) grid = max_blocks;
-  // Rows shorter than a tile never take the ring: no shared memory then.
-  const int smem = n_obs < kTile ? 0 : kSmemBytes;
-  linreg_reductions_kernel<<<grid, kThreads, smem,
+  linreg_reductions_kernel<<<grid, kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       intercept, slope, log_sigma, offsets, x, y, m,
       reinterpret_cast<float4*>(partials), reinterpret_cast<float4*>(out),

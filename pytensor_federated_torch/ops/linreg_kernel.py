@@ -156,6 +156,30 @@ def _launch(
     return out
 
 
+def _reduce(
+    scalars: Scalars,
+    offsets: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+) -> torch.Tensor:
+    """``(S + 1, 4)``: the per-shard ``(ll, gmu, gx, gz)`` rows, then
+    their totals over shards.  One kernel launch on CUDA; on the CPU the
+    plain version, its rows summed."""
+    scalars = _split_scalars(scalars)
+    _check_shapes(offsets, x, y, mask)
+    devices = {t.device for t in (*scalars, offsets, x, y, mask)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cpu":
+        rows = torch.stack(linreg_reductions_ref(scalars, offsets, x, y, mask), dim=1)
+        return torch.cat([rows, rows.sum(dim=0, keepdim=True)])
+    if device.type != "cuda":
+        raise ValueError(f"linreg_reductions runs on cuda or cpu, not {device}")
+    return _launch(scalars, offsets, x, y, mask)
+
+
 def linreg_reductions_and_totals(
     scalars: Scalars,
     offsets: torch.Tensor,
@@ -164,24 +188,10 @@ def linreg_reductions_and_totals(
     mask: torch.Tensor,
 ) -> Tuple[Reductions, torch.Tensor]:
     """:func:`linreg_reductions` and its four totals over shards,
-    ``(sum ll, sum gmu, sum gx, sum gz)``, from one call.
-
-    On CUDA one kernel launch gives both; on the CPU the plain version
-    runs and its per-shard outputs are summed.
-    """
-    scalars = _split_scalars(scalars)
-    _check_shapes(offsets, x, y, mask)
-    devices = {t.device for t in (*scalars, offsets, x, y, mask)}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type == "cpu":
-        red = linreg_reductions_ref(scalars, offsets, x, y, mask)
-        return red, torch.stack(red, dim=1).sum(dim=0)
-    if device.type != "cuda":
-        raise ValueError(f"linreg_reductions runs on cuda or cpu, not {device}")
-    out = _launch(scalars, offsets, x, y, mask)
-    S = x.shape[0]
+    ``(sum ll, sum gmu, sum gx, sum gz)``, from one call (on CUDA, one
+    kernel launch)."""
+    out = _reduce(scalars, offsets, x, y, mask)
+    S = out.shape[0] - 1
     return (out[:S, 0], out[:S, 1], out[:S, 2], out[:S, 3]), out[S]
 
 
@@ -218,11 +228,10 @@ class _DataLogp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, intercept, slope, log_sigma, offsets, x, y, mask):
-        (_, gmu, _, _), totals = linreg_reductions_and_totals(
-            (intercept, slope, log_sigma), offsets, x, y, mask
-        )
-        ctx.save_for_backward(totals, gmu)
-        return totals[0]
+        out = _reduce((intercept, slope, log_sigma), offsets, x, y, mask)
+        S = out.shape[0] - 1
+        ctx.save_for_backward(out[S], out[:S, 1])  # the totals, per-shard gmu
+        return out[S, 0]
 
     @staticmethod
     def backward(ctx, g):

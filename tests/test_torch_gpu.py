@@ -32,11 +32,11 @@ from pytensor_federated_torch.utils import value_and_grad
 SHAPES = [
     (1, 8), (5, 70), (8, 512), (12, 700), (8, 64), (5, 4099), (3, 20000),
     # The persistent schedule: fewer tiles than blocks, one very long row
-    # (a ragged tail after ~977 tiles), many short rows, and a tile count
+    # (a ragged tail after 488 tiles), many short rows, and a tile count
     # (7 x 53 = 371 tiles) that the grid does not divide.
-    (2, 4100), (1, 2_000_003), (4096, 37), (7, 53 * 2048),
+    (2, 4100), (1, 2_000_003), (4096, 37), (7, 53 * 4096),
 ]
-UNEVEN = (7, 53 * 2048)
+UNEVEN = (7, 53 * 4096)
 
 
 def _cuda():

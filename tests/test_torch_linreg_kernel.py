@@ -21,8 +21,10 @@ from pytensor_federated_tpu.ops.pallas_kernels import (
 )
 from pytensor_federated_torch.ops import _build
 from pytensor_federated_torch.ops.linreg_kernel import (
+    _DataLogp,
     linreg_logp_grad_fn,
     linreg_reductions,
+    linreg_reductions_and_totals,
 )
 
 SHAPES = [(1, 8), (5, 70), (8, 512), (12, 700)]  # test_pallas.py's cases
@@ -75,6 +77,76 @@ def test_reductions_match_jax(S, N):
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=VALUE_RTOL)
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("S,N", SHAPES)
+def test_totals_match_jax(S, N):
+    """The four totals over shards (what the kernel writes beside the
+    per-shard rows) equal the sums of the JAX package's reductions."""
+    x, y, mask, params = _make_case(S, N, seed=1)
+    want = jax_reductions(
+        jnp.asarray(_scalars(params)), jnp.asarray(params["offsets"]),
+        x, y, mask, interpret=True,
+    )
+    red, totals = linreg_reductions_and_totals(
+        torch.tensor(_scalars(params)), torch.tensor(params["offsets"]),
+        torch.tensor(x), torch.tensor(y), torch.tensor(mask),
+    )
+    assert totals.shape == (4,)
+    for g, w in zip(red, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+    np.testing.assert_allclose(totals[0].numpy(), np.sum(want[0]), rtol=VALUE_RTOL)
+    for g, w in zip(totals[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.sum(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("S,N", SHAPES)
+def test_data_logp_totals_path_matches_jax(S, N):
+    """``_DataLogp`` takes the three scalars as 0-d tensors and returns
+    the ll total; its gradient is the totals and the per-shard gmu."""
+    x, y, mask, params = _make_case(S, N, seed=2)
+    jfn = jax_logp_grad_fn(x, y, mask, interpret=True)
+    jv, jg = jax.value_and_grad(jfn.data_logp)(_jax_params(params))
+    p = _torch_params(params, requires_grad=True)
+    tv = _DataLogp.apply(
+        p["intercept"], p["slope"], p["log_sigma"], p["offsets"],
+        *map(torch.tensor, (x, y, mask)),
+    )
+    tg = dict(zip(p, torch.autograd.grad(tv, list(p.values()))))
+    np.testing.assert_allclose(tv.detach().numpy(), np.asarray(jv), rtol=VALUE_RTOL)
+    for k in jg:
+        np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), **GRAD_TOL)
+
+
+def test_scalars_as_three_0d_tensors():
+    """Three 0-d tensors give the bits of one (3,) tensor."""
+    x, y, mask, params = _make_case(4, 33)
+    data = [torch.tensor(params["offsets"]), *map(torch.tensor, (x, y, mask))]
+    one = linreg_reductions(torch.tensor(_scalars(params)), *data)
+    three = linreg_reductions(tuple(torch.tensor(v) for v in _scalars(params)), *data)
+    for a, b in zip(one, three):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize(
+    "bad,error",
+    [("dtype", TypeError), ("device", ValueError), ("count", ValueError), ("ndim", ValueError)],
+)
+def test_wrapper_rejects_malformed_scalars(bad, error):
+    x, y, mask, params = _make_case(3, 10)
+    scal = [torch.tensor(v) for v in _scalars(params)]
+    if bad == "dtype":
+        scal[1] = scal[1].double()
+    elif bad == "device":
+        scal[2] = scal[2].to("meta")
+    elif bad == "count":
+        scal = scal[:2]
+    else:
+        scal[0] = scal[0].reshape(1)
+    with pytest.raises(error):
+        linreg_reductions_and_totals(
+            scal, torch.tensor(params["offsets"]), *map(torch.tensor, (x, y, mask))
+        )
 
 
 @pytest.mark.parametrize("S,N", SHAPES)
