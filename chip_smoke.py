@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # device, build and kernels
+    python3 chip_smoke.py --only federated # device, build, nuts, federated
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -37,10 +38,26 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    offsets varies around 1.05 from one trajectory to the next (a change
    in the last bits of a sum is enough to move it across), so the phase
    takes 900.
+7. ``federated`` — the federation wire.  The kernel is built above,
+   before any node starts.  Four node processes (``spawn``) each rebuild
+   shards {2i, 2i+1} of the flagship data from its seed, on the card,
+   and serve their logp+grad through the kernel with ``serve_tcp_once``,
+   one port per size.  A driver on the CPU fans out to them with
+   ``ParallelLogpGrad`` and adds the prior.  It checks the remote value
+   and gradient against the in-process ones on the card at 8 x 131,072
+   (three points, the autograd phase's tolerance); times a remote
+   evaluation (median of 300) at 8 x 64 and 8 x 131,072, fanned out and
+   with the nodes called in turn; splits one request's time into wire
+   and node from the spans the nodes ship back (spans on for that short
+   run only); and runs NUTS over the wire at 8 x 64, 1 chain x 300
+   warmup + 600 draws, whose means must also lie within 4 combined MCSEs
+   of the nuts phase's.  Each node reports its GPU and as many kernel
+   launches as requests.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
-device line.  With ``--only kernels`` it stops after the kernels phase
-and prints neither the kernel record line nor the device line.  Any
+device line.  With ``--only kernels`` it stops after the kernels phase,
+with ``--only federated`` it runs the nuts and federated phases only;
+either prints neither the kernel record line nor the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
 non-zero and prints no result.
@@ -50,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -94,6 +112,16 @@ FLAGSHIP = (8, 64)  # bench.py's flagship size
 LARGE_PATH = (8, 131_072)  # the nuts_large phase
 REALISTIC = [(8, 1_048_576), (64, 65_536)]
 TRUE = {"intercept": 1.5, "slope": 2.0, "sigma": 0.5}
+# The federated phase: 4 node processes, node i owning shards {2i, 2i+1};
+# timed at both sizes, NUTS over the wire at the flagship size.  Four
+# node processes share the one card, and an evaluation over the wire
+# costs ~3x one in process: 2 chains x 300 + 300 took 307 s, so the phase
+# runs 1 chain x 300 warmup + 600 draws, as many draws in 3/4 of the
+# iterations.
+FED_NODES = 4
+FED_SIZES = (FLAGSHIP[1], LARGE_PATH[1])
+FED_TIMED_CALLS = 300
+FED_NUTS = (1, 300, 600)  # chains, warmup, draws
 
 
 def emit(obj) -> None:
@@ -401,6 +429,21 @@ def phase_autograd():
     }
 
 
+def _recovered(derived):
+    """Posterior mean, sd and Monte Carlo standard error (sd / sqrt(ESS))
+    of each derived quantity, against its generating value."""
+    import pytensor_federated_torch as pft
+
+    ess = pft.samplers.effective_sample_size(derived)
+    out = {}
+    for k, d in derived.items():
+        mean, sd = float(d.mean()), float(d.std())
+        out[k] = {"mean": mean, "sd": sd, "ess": float(ess[k]),
+                  "mcse": sd / float(ess[k]) ** 0.5, "true": TRUE[k],
+                  "within_4sd": abs(mean - TRUE[k]) <= 4 * sd}
+    return out
+
+
 def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
     import pytensor_federated_torch as pft
     from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
@@ -433,11 +476,7 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
     }
     rhat = pft.samplers.split_rhat(s)
     max_rhat = max(float(v.max()) for v in rhat.values())
-    recovered = {}
-    for k, d in derived.items():
-        mean, sd = float(d.mean()), float(d.std())
-        recovered[k] = {"mean": mean, "sd": sd, "true": TRUE[k],
-                        "within_4sd": abs(mean - TRUE[k]) <= 4 * sd}
+    recovered = _recovered(derived)
     finite = all(bool(torch.isfinite(v).all()) for v in s.values())
     ok = (
         launches >= grad_evals > 0
@@ -462,10 +501,300 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
     }
 
 
+def _fed_node(rank, sizes, conn):
+    """One federated node process.  It owns shards {2 rank, 2 rank + 1}
+    of ``generate_node_data(8, n_obs, seed=123)`` for each size, rebuilt
+    here from the seed (the driver never holds data), on the card; it
+    serves their logp+grad, one kernel launch per request, on one TCP
+    port per size, and answers the parent's commands on ``conn``."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import threading
+
+        import pytensor_federated_torch as pft
+        from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+        from pytensor_federated_torch.service import _node_metrics, device_compute_fn, serve_tcp_once
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"node {rank} found no GPU")
+        own = slice(2 * rank, 2 * rank + 2)
+        ports = {}
+        for n_obs in sizes:
+            data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device="cpu")
+            (x, y), mask = data.tree()
+            kern = pft.linreg_logp_grad_fn(*(t[own].to("cuda") for t in (x, y, mask)))
+
+            def node_logp_grad(intercept, slope, log_sigma, offsets, kern=kern):
+                logp, g = kern({"intercept": intercept, "slope": slope,
+                                "log_sigma": log_sigma, "offsets": offsets})
+                return logp, (g["intercept"], g["slope"], g["log_sigma"], g["offsets"])
+
+            compute = device_compute_fn(pft.wrap_logp_grad_fn(node_logp_grad))
+            bound = threading.Event()
+
+            def on_ready(port, n_obs=n_obs, bound=bound):
+                ports[n_obs] = port
+                bound.set()
+
+            threading.Thread(target=serve_tcp_once, args=(compute,), daemon=True,
+                             kwargs={"port": 0, "concurrent": True, "ready_callback": on_ready}).start()
+            if not bound.wait(60):
+                raise RuntimeError(f"node {rank} did not bind a port")
+        requests = _node_metrics.REQUESTS.labels(method="evaluate")
+        conn.send({"rank": rank, "ports": ports, "device": torch.cuda.get_device_name(),
+                   "cuda": str(compute.device)})
+        earlier_launches, window_start = 0, requests.value
+        while True:
+            cmd = conn.recv()
+            if cmd == "reset":  # counts to 0 just before a drive
+                earlier_launches += linreg_reductions.launches
+                linreg_reductions.launches = 0
+                window_start = requests.value
+            counts = {"window_requests": int(requests.value - window_start),
+                      "window_launches": linreg_reductions.launches,
+                      "requests": int(requests.value),
+                      "launches": earlier_launches + linreg_reductions.launches}
+            conn.send(counts)
+            if cmd == "stop":
+                return
+    except Exception:
+        conn.send({"error": traceback.format_exc()})
+
+
+def _fed_ask(conns, cmd, timeout=120.0):
+    """Send ``cmd`` to every node and collect one reply from each."""
+    for c in conns:
+        if cmd is not None:
+            c.send(cmd)
+    replies = []
+    for c in conns:
+        if not c.poll(timeout):
+            raise TimeoutError(f"a node did not answer {cmd!r} within {timeout} s")
+        msg = c.recv()
+        if "error" in msg:
+            raise RuntimeError(f"a node failed:\n{msg['error']}")
+        replies.append(msg)
+    return replies
+
+
+def _remote_posterior(nodes, n_obs, parallel=True):
+    """The driver: one TCP client per node, adapted to ``(logp, grads)``,
+    fanned out by ``ParallelLogpGrad``; logp = prior + the nodes' sum.
+    It runs on the CPU and holds the 11 parameters only.  With
+    ``parallel=False`` each node is a ``blackbox_logp_grad`` op called in
+    turn (the JAX remote demo's ``--sequential``), which shows what a
+    node's request costs while the other nodes are idle."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.service import TcpArraysClient
+
+    clients = [TcpArraysClient("127.0.0.1", n["ports"][n_obs], timeout_s=120.0) for n in nodes]
+
+    def as_logp_grad(client):
+        def call(*arrays):
+            out = client.evaluate(*arrays)
+            return out[0], out[1:]
+
+        return call
+
+    spec = pft.spec_of(*(torch.zeros((), dtype=torch.float32),) * 3,
+                       torch.zeros(2, dtype=torch.float32))
+    if parallel:
+        fan = pft.ParallelLogpGrad([as_logp_grad(c) for c in clients], [spec] * len(clients))
+        total = fan.total_logp
+    else:
+        ops = [pft.blackbox_logp_grad(as_logp_grad(c), spec) for c in clients]
+        total = lambda per_node: sum(op.logp(*args) for op, args in zip(ops, per_node))
+
+    def posterior(p):
+        per_node = [(p["intercept"], p["slope"], p["log_sigma"], p["offsets"][2 * i:2 * i + 2])
+                    for i in range(len(clients))]
+        return pft.linreg_prior_logp(p) + total(per_node)
+
+    def close():
+        if parallel:
+            fan.close()
+        for c in clients:
+            c.close()
+
+    return posterior, close
+
+
+def _wire_split(posterior, p, rounds=8, per_round=8):
+    """Driver spans on for a short run: the per-request round trip
+    (``rpc.evaluate``) against the node's own time (its shipped
+    ``node.evaluate`` span plus the decode before it) and its compute
+    (the ``compute`` span), medians in ms."""
+    from pytensor_federated_torch.telemetry import reunion, spans
+    from pytensor_federated_torch.utils import value_and_grad
+
+    rpc, node, compute = [], [], []
+    spans.set_enabled(True)
+    try:
+        for _ in range(rounds):  # rounds small enough for the trace rings
+            spans.clear_traces()
+            reunion.clear()
+            for _ in range(per_round):
+                value_and_grad(posterior, p)
+            rpc += [t["duration_s"] for t in spans.recent_traces() if t["name"] == "rpc.evaluate"]
+            for t in reunion.remote_traces():
+                if t["name"] != "node.evaluate":
+                    continue
+                node.append(t["duration_s"] + t.get("attrs", {}).get("decode_s", 0.0))
+                compute += [c["duration_s"] for c in t.get("children", []) if c["name"] == "compute"]
+    finally:
+        spans.set_enabled(False)
+    med = lambda v: statistics.median(v) * 1e3 if v else None
+    return {"requests": len(rpc), "node_spans": len(node), "rpc_ms": med(rpc), "node_ms": med(node),
+            "node_compute_ms": med(compute),
+            "wire_and_client_ms": med(rpc) - med(node) if rpc and node else None}
+
+
+def phase_federated(nuts_line, seed=7):
+    import multiprocessing as mp
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.samplers.util import ravel
+    from pytensor_federated_torch.telemetry import spans
+    from pytensor_federated_torch.utils import resolve_device, value_and_grad
+
+    cpu = resolve_device("cpu")  # the driver holds 11 floats
+    spans.set_enabled(False)  # on only for the short span run
+    ctx = mp.get_context("spawn")
+    procs, conns, closers = [], [], []
+    try:
+        t0 = time.perf_counter()
+        for rank in range(FED_NODES):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_fed_node, args=(rank, FED_SIZES, child), daemon=True)
+            proc.start()
+            procs.append(proc)
+            conns.append(parent)
+        nodes = _fed_ask(conns, None, timeout=300.0)
+        spawn_s = time.perf_counter() - t0
+        on_card = all(n["cuda"].startswith("cuda") and n["device"] for n in nodes)
+
+        # Values at 8 x 131,072: remote against in-process on the card.
+        _, true_offsets = pft.generate_node_data(8, n_obs=8, seed=123, device="cpu")
+        init = {k: torch.zeros((8,) if k == "offsets" else (), dtype=torch.float32, device=cpu)
+                for k in ("intercept", "slope", "log_sigma", "offsets")}
+        flat0, unravel = ravel(init)
+        truth = {"intercept": torch.tensor(TRUE["intercept"]), "slope": torch.tensor(TRUE["slope"]),
+                 "log_sigma": torch.tensor(math.log(TRUE["sigma"])),
+                 "offsets": torch.tensor(true_offsets, dtype=torch.float32)}
+        points = {"origin": flat0, "perturbed": flat0 + 0.1 * torch.arange(11, dtype=torch.float32),
+                  "truth": ravel(truth)[0]}
+        remote, close = _remote_posterior(nodes, LARGE_PATH[1])
+        closers.append(close)
+        _, _, _, local = _flagship(LARGE_PATH[1])
+        values, values_ok = [], True
+        for name, flat in points.items():
+            rv, rg = value_and_grad(remote, unravel(flat))
+            lv, lg = value_and_grad(local, unravel(flat.cuda()))
+            ok, err = _flat_close((rv, rg), (lv.cpu(), {k: v.cpu() for k, v in lg.items()}))
+            values.append({"point": name, **err, "remote_logp": float(rv), "ok": ok})
+            values_ok &= ok
+
+        # Time per remote evaluation, then the wire/node split from spans:
+        # the fan-out, and each node called in turn while the others idle.
+        timing = {}
+        for n_obs in FED_SIZES:
+            timing[f"8x{n_obs}"] = {}
+            for mode in ("parallel", "sequential"):
+                if n_obs == LARGE_PATH[1] and mode == "parallel":
+                    post = remote
+                else:
+                    post, close = _remote_posterior(nodes, n_obs, parallel=mode == "parallel")
+                    closers.append(close)
+                for _ in range(20):
+                    value_and_grad(post, truth)
+                times = []
+                for _ in range(FED_TIMED_CALLS):
+                    ts = time.perf_counter()
+                    value_and_grad(post, truth)
+                    times.append(time.perf_counter() - ts)
+                timing[f"8x{n_obs}"][mode] = {"calls": FED_TIMED_CALLS,
+                                              "ms_per_eval": statistics.median(times) * 1e3,
+                                              "spans": _wire_split(post, truth)}
+                if n_obs == FLAGSHIP[1] and mode == "parallel":
+                    flagship = post
+
+        # NUTS over the wire at the flagship size; node counts from zero.
+        _fed_ask(conns, "reset")
+        grad_evals = 0
+
+        def counted(p):
+            nonlocal grad_evals
+            grad_evals += 1
+            return flagship(p)
+
+        gen = torch.Generator(device=cpu).manual_seed(seed)
+        t0 = time.perf_counter()
+        res = pft.samplers.sample(counted, init, generator=gen, num_warmup=FED_NUTS[1],
+                                  num_samples=FED_NUTS[2], num_chains=FED_NUTS[0])
+        wall = time.perf_counter() - t0
+        counts = _fed_ask(conns, "counts")
+        s = res.samples
+        derived = {"intercept": s["intercept"], "slope": s["slope"], "sigma": torch.exp(s["log_sigma"])}
+        max_rhat = max(float(v.max()) for v in pft.samplers.split_rhat(s).values())
+        recovered = _recovered(derived)
+        local_rec = nuts_line.get("recovered", {})
+        for k, r in recovered.items():
+            ref = local_rec.get(k)
+            if ref is None or "mcse" not in ref:
+                r["within_mcse_of_nuts"] = False
+                continue
+            limit = 4 * (r["mcse"] ** 2 + ref["mcse"] ** 2) ** 0.5
+            r["nuts_mean"], r["mcse_limit"] = ref["mean"], limit
+            r["within_mcse_of_nuts"] = abs(r["mean"] - ref["mean"]) <= limit
+        finite = all(bool(torch.isfinite(v).all()) for v in s.values())
+        launches = sum(c["window_launches"] for c in counts)
+        per_request = all(c["window_launches"] == c["window_requests"] == grad_evals
+                          and c["launches"] == c["requests"] for c in counts)
+        ok = (
+            on_card and values_ok and per_request and grad_evals > 0 and finite
+            and max_rhat < 1.05
+            and all(r["within_4sd"] and r["within_mcse_of_nuts"] for r in recovered.values())
+        )
+        return ok, {
+            "phase": "federated",
+            "nodes": [{"rank": n["rank"], "device": n["device"], "cuda": n["cuda"],
+                       **{k: c[k] for k in ("requests", "launches")}} for n, c in zip(nodes, counts)],
+            "spawn_s": spawn_s,
+            "tolerance": {"value_rtol": AUTOGRAD_RTOL_VALUE, "grad_rtol": AUTOGRAD_RTOL_GRAD,
+                          "grad_atol": AUTOGRAD_ATOL_GRAD, "source": "bench.py equality gate"},
+            "values": {"size": list(LARGE_PATH), "points": values},
+            "timing": timing,
+            "nuts": {"size": list(FLAGSHIP), "chains": FED_NUTS[0], "warmup": FED_NUTS[1],
+                     "draws": FED_NUTS[2], "wall_s": wall, "grad_evals": grad_evals,
+                     "ms_per_grad_eval": wall * 1e3 / max(grad_evals, 1),
+                     "in_process_ms_per_grad_eval": nuts_line.get("ms_per_grad_eval"),
+                     "node_requests": [c["window_requests"] for c in counts],
+                     "kernel_launches": launches,
+                     "one_launch_per_request": per_request,
+                     "mean_tree_depth": float(res.stats["depth"].float().mean()),
+                     "divergences": int(res.stats["diverging"].sum()),
+                     "max_split_rhat": max_rhat, "recovered": recovered, "finite": finite},
+        }
+    finally:
+        for close in closers:
+            close()
+        for c in conns:
+            try:
+                c.send("stop")
+            except (OSError, ValueError):
+                pass
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["kernels"],
-                        help="stop after the kernels phase (device, build, kernels)")
+    parser.add_argument("--only", choices=["kernels", "federated"],
+                        help="kernels: device, build and kernels only; federated: device, "
+                             "build, nuts and federated only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -505,9 +834,12 @@ def main() -> int:
         ("nuts", lambda: phase_nuts("nuts", FLAGSHIP[1], 2, 300, 300, dense_mass=False)),
         ("nuts_large",
          lambda: phase_nuts("nuts_large", LARGE_PATH[1], 1, 600, 900, dense_mass=True)),
+        ("federated", lambda: phase_federated(lines.get("nuts", {}))),
     ]
     if args.only == "kernels":
         phases = phases[:1]
+    elif args.only == "federated":
+        phases = [ph for ph in phases if ph[0] in ("nuts", "federated")]
     all_ok, lines = True, {}
     for pname, fn in phases:
         try:
@@ -530,8 +862,10 @@ def main() -> int:
         "route": "cuda",
         "source": "pytensor_federated_torch/ops/csrc/linreg_reductions.cu",
         "replaces": "pytensor_federated_tpu/ops/pallas_kernels.py:78",
-        # Counted from zero just before each NUTS phase, read just after.
-        "launches": sum(lines[p].get("kernel_launches", 0) for p in ("nuts", "nuts_large")),
+        # Counted from zero just before each NUTS phase, read just after
+        # (in the federated phase, by the four node processes).
+        "launches": sum(lines[p].get("kernel_launches", 0) for p in ("nuts", "nuts_large"))
+                    + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),
         "max_abs_err": large.get("max_abs_err"),

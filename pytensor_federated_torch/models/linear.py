@@ -105,6 +105,19 @@ def _suffstat_shard_logp(A, slope, log_sigma, stats):
     return -0.5 * ssr * inv_s2 - (log_sigma + 0.5 * LOG_2PI) * n
 
 
+def linreg_prior_logp(
+    params: Any, *, prior_scale: float = 10.0, offset_scale: float = 0.3
+) -> torch.Tensor:
+    """The model's prior log-density; it needs no data, so a federated
+    driver that holds none computes it (the nodes supply the rest)."""
+    lp = _normal_logpdf(params["intercept"], 0.0, prior_scale)
+    lp = lp + _normal_logpdf(params["slope"], 0.0, prior_scale)
+    lp = lp + torch.sum(_normal_logpdf(params["offsets"], 0.0, offset_scale))
+    # HalfNormal(1) on sigma via log_sigma with Jacobian |d sigma/d log_sigma|.
+    sigma = torch.exp(params["log_sigma"])
+    return lp + (-0.5 * sigma**2 + params["log_sigma"])
+
+
 @dataclasses.dataclass
 class FederatedLinearRegression:
     """Hierarchical linear regression over federated shards.
@@ -157,13 +170,9 @@ class FederatedLinearRegression:
     # -- prior + posterior ------------------------------------------------
 
     def prior_logp(self, params: Any) -> torch.Tensor:
-        s = self.prior_scale
-        lp = _normal_logpdf(params["intercept"], 0.0, s)
-        lp = lp + _normal_logpdf(params["slope"], 0.0, s)
-        lp = lp + torch.sum(_normal_logpdf(params["offsets"], 0.0, self.offset_scale))
-        # HalfNormal(1) on sigma via log_sigma with Jacobian |d sigma/d log_sigma|.
-        sigma = torch.exp(params["log_sigma"])
-        return lp + (-0.5 * sigma**2 + params["log_sigma"])
+        return linreg_prior_logp(
+            params, prior_scale=self.prior_scale, offset_scale=self.offset_scale
+        )
 
     def logp(self, params: Any) -> torch.Tensor:
         return self.prior_logp(params) + self.fed.logp(params)

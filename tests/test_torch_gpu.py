@@ -168,3 +168,50 @@ def test_totals_equal_float64_sum_of_shards(S, N):
     want = per_shard.sum(0)
     scale = per_shard.abs().sum(0)
     assert torch.all((totals.double() - want).abs() <= 4e-6 * scale)
+
+
+@pytest.mark.gpu
+def test_node_on_the_card_serves_the_kernel_over_tcp():
+    """A node owning two shards on the card answers TCP requests with one
+    kernel launch each, and its replies equal a CPU node's (the plain
+    version) at rtol 5e-5 / 5e-4."""
+    import threading
+
+    from pytensor_federated_torch.service import TcpArraysClient, device_compute_fn, serve_tcp_once
+    from pytensor_federated_torch.wrappers import wrap_logp_grad_fn
+
+    dev = _cuda()
+    _, _, x, y, m = _case(2, 5000, dev, seed=9)
+    keys = ("intercept", "slope", "log_sigma", "offsets")
+
+    def node(device):
+        kern = linreg_logp_grad_fn(x.to(device), y.to(device), m.to(device))
+
+        def logp_grad(*params):
+            logp, g = kern(dict(zip(keys, params)))
+            return logp, tuple(g[k] for k in keys)
+
+        return device_compute_fn(wrap_logp_grad_fn(logp_grad), device=device)
+
+    ports = []
+    for device in ("cuda", "cpu"):
+        ready = threading.Event()
+        threading.Thread(target=serve_tcp_once, args=(node(device),), daemon=True,
+                         kwargs={"max_connections": 1, "concurrent": True,
+                                 "ready_callback": lambda p, r=ready: (ports.append(p), r.set())}).start()
+        assert ready.wait(30)
+    clients = [TcpArraysClient("127.0.0.1", p, timeout_s=60) for p in ports]
+    try:
+        before = linreg_reductions.launches
+        for i in range(5):
+            req = [np.float32(0.1 * i), np.float32(1.9), np.float32(-0.2),
+                   np.array([0.1, -0.2], np.float32)]
+            on_card, plain = (c.evaluate(*req) for c in clients)
+            np.testing.assert_allclose(on_card[0], plain[0], rtol=5e-5)
+            for g, w in zip(on_card[1:], plain[1:]):
+                assert g.shape == w.shape and g.dtype == np.float32
+                np.testing.assert_allclose(g, w, rtol=5e-4, atol=5e-4)
+        assert linreg_reductions.launches == before + 5
+    finally:
+        for c in clients:
+            c.close()

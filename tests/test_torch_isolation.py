@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its entry points never fall back to the CPU quietly."""
+"""The PyTorch port stands alone: it imports neither JAX, nor the JAX
+package, nor gRPC, and its entry points never fall back to the CPU
+quietly."""
 
 import ast
 import subprocess
@@ -14,12 +15,17 @@ from pytensor_federated_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "pytensor_federated_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "pytensor_federated_tpu")
+FORBIDDEN = ("jax", "jaxlib", "pytensor_federated_tpu", "grpc")
+#: The port's subpackages and top-level modules, each imported on its own.
+SUBPACKAGES = (
+    "service", "telemetry", "faultinject", "routing", "ops", "signatures",
+    "wrappers", "fanout_exec", "models", "parallel", "samplers",
+)
 
 
 def test_importing_the_port_loads_no_jax():
     """In a fresh interpreter, importing the port and every submodule
-    leaves JAX and the JAX package out of ``sys.modules``."""
+    leaves JAX, the JAX package and gRPC out of ``sys.modules``."""
     modules = sorted(
         "pytensor_federated_torch." + ".".join(p.relative_to(ROOT / "pytensor_federated_torch").with_suffix("").parts)
         for p in PORT_FILES[:-1]
@@ -33,6 +39,22 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden})\n"
         "print('BAD', bad)\n"
     ).format(forbidden=set(FORBIDDEN), modules=modules)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("name", SUBPACKAGES)
+def test_each_subpackage_alone_loads_no_jax_or_grpc(name):
+    """Each subpackage, imported first and alone in a fresh interpreter,
+    pulls in neither JAX, nor the JAX package, nor gRPC."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('pytensor_federated_torch.{name}')\n"
+        f"print('BAD', sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)}))\n"
+    )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
