@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # device, build and kernels
     python3 chip_smoke.py --only federated # device, build, nuts, federated
+    python3 chip_smoke.py --only models    # device, build, radon, logistic, lv_ode
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -53,11 +54,33 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    warmup + 600 draws, whose means must also lie within 4 combined MCSEs
    of the nuts phase's.  Each node reports its GPU and as many kernel
    launches as requests.
+8. ``radon`` — BASELINE.json config 3 (the hierarchical radon GLM, 16
+   county shards) on the card: value and gradient at three points against
+   the same model in float64 on the CPU; ms per logp+grad evaluation
+   (median of 50); NUTS, 1 chain x 300 warmup + 300 draws, with finite
+   draws, divergence share < 0.1, |median beta - truth| < 0.3 (the JAX
+   package's test gate) and split R-hat < 1.1.
+9. ``logistic`` — config 5 (64 shards x 64 observations x 8 features):
+   the vmapped, sufficient-statistic and flattened forms behind
+   bench_suite's equality gate; the vmapped form, its bf16 compute dtype
+   and the hierarchical model against float64 on the CPU; ms per
+   evaluation of each form at 64 x 64 x 8 and 64 x 16,384 x 8; NUTS on
+   the vmapped form, 1 x 300 + 300, every w and b within 4 sd of the
+   generating values, split R-hat < 1.1.
+10. ``lv_ode`` — config 4 (Lotka-Volterra, 8 shards, 128 RK4 steps):
+   values against float64 on the CPU; ms (median of 20) and CUDA
+   launches (profiler) per logp+grad evaluation; ``find_map`` for 100
+   steps on the card against 100 steps in float64 on the CPU.  No NUTS:
+   an evaluation is launch-bound at tens of ms.
+
+These three launch no kernel of the port: the JAX package computes
+these models outside Pallas, and so does the port.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
 device line.  With ``--only kernels`` it stops after the kernels phase,
-with ``--only federated`` it runs the nuts and federated phases only;
-either prints neither the kernel record line nor the device line.  Any
+with ``--only federated`` it runs the nuts and federated phases only,
+with ``--only models`` the radon, logistic and lv_ode phases only; none
+of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
 non-zero and prints no result.
@@ -122,6 +145,28 @@ FED_NODES = 4
 FED_SIZES = (FLAGSHIP[1], LARGE_PATH[1])
 FED_TIMED_CALLS = 300
 FED_NUTS = (1, 300, 600)  # chains, warmup, draws
+
+# BASELINE.json configs 3-5 at bench_suite.py's sizes: radon
+# generate_radon_data(16, seed=12) (bench_suite.py:713); Lotka-Volterra
+# make_lv_model(8) (bench_suite.py:722); logistic generate_logistic_data(
+# n_shards=64, n_obs=64, n_features=8) (bench_suite.py:747), also timed
+# at 16,384 observations per shard (X is 32 MiB).
+RADON = dict(n_counties=16, seed=12)
+LOGISTIC = dict(n_shards=64, n_obs=64, n_features=8)
+LOGISTIC_LARGE_OBS = 16_384
+LV_SHARDS = 8
+MODEL_NUTS = (1, 300, 300)  # chains, warmup, draws (radon and logistic)
+# A model's float32 value and gradient on the card against the same
+# model run in float64 on the CPU.  At these sizes float32 on the CPU
+# lands within 4e-7 of float64 on the value and 2e-6 relative on every
+# gradient component not near zero; the gates leave ~25x room for the
+# card's other summation orders: value rtol 1e-5, gradient within
+# 1e-4 |g| + 1e-5 max|g of its leaf|.
+MODEL_VALUE_RTOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX = 1e-5, 1e-4, 1e-5
+# bf16 compute_dtype against float32 arithmetic: tests/test_mixed_precision.py's band.
+BF16_VALUE_RTOL, BF16_GRAD_TOL = 2e-2, 5e-2
+LV_FIND_MAP = dict(num_steps=100, learning_rate=0.05)
+LV_FIND_MAP_ATOL = 1e-4  # log_theta, card against float64 on the CPU (CPU float32: 7e-8)
 
 
 def emit(obj) -> None:
@@ -790,11 +835,269 @@ def phase_federated(nuts_line, seed=7):
                 proc.join()
 
 
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _as_f64_cpu(data):
+    """A ``ShardedData`` (or a tensor) as float64 on the CPU: the data of
+    a model's plain float64 version."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.utils import tree_map
+
+    if torch.is_tensor(data):
+        return data.detach().cpu().double()
+    return pft.ShardedData(data=tree_map(lambda t: t.cpu().double(), data.data),
+                           mask=data.mask.cpu().double())
+
+
+def _three_points(init, seed=5):
+    """The origin (``init_params``), origin + 0.1 * arange, and a seeded
+    normal perturbation of scale 0.3, as params trees."""
+    from pytensor_federated_torch.samplers.util import ravel
+
+    flat, unravel = ravel(init)
+    gen = torch.Generator().manual_seed(seed)
+    noise = 0.3 * torch.randn(flat.shape, generator=gen)
+    steps = 0.1 * torch.arange(flat.shape[0], dtype=flat.dtype)
+    return {"origin": init, "perturbed": unravel(flat + steps.to(flat.device)),
+            "normal": unravel(flat + noise.to(flat.device))}
+
+
+def _against_f64(model, model64, points, *, value_rtol=MODEL_VALUE_RTOL,
+                 grad_rtol=MODEL_GRAD_RTOL, grad_atol_of_max=MODEL_GRAD_ATOL_OF_MAX):
+    """A model's value and gradient on its device against its float64
+    version on the CPU at each point; per point the relative value error,
+    the largest gradient error as a share of its tolerance, and ok."""
+    out, ok = [], True
+    for name, p in points.items():
+        v, g = model.logp_and_grad(p)
+        v64, g64 = model64.logp_and_grad({k: t.detach().cpu().double() for k, t in p.items()})
+        rel = abs(float(v) - float(v64)) / abs(float(v64))
+        worst = 0.0
+        for k in g64:
+            err = (g[k].detach().cpu().double() - g64[k]).abs()
+            tol = grad_rtol * g64[k].abs() + grad_atol_of_max * float(g64[k].abs().max())
+            worst = max(worst, float((err / tol.clamp_min(1e-30)).max()))
+        point_ok = rel <= value_rtol and worst <= 1.0 and math.isfinite(float(v))
+        out.append({"point": name, "logp": float(v), "value_rel_err": rel,
+                    "grad_err_over_tol": worst, "ok": point_ok})
+        ok &= point_ok
+    return ok, out
+
+
+def _ms_per_eval(fn, dev, reps):
+    """Median host time of ``reps`` synchronised calls, after 3 warm-ups."""
+    for _ in range(3):
+        fn()
+    _sync(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def _launches(fn, dev, calls):
+    """CUDA launches per call of ``fn`` by the profiler; None off the card."""
+    return _cuda_launches_per_call(fn, calls)[0] if torch.device(dev).type == "cuda" else None
+
+
+def _model_nuts(model, dev, seed, nuts=MODEL_NUTS):
+    """NUTS on ``model.logp`` with gradient evaluations counted; the run's
+    draws, wall time and stats."""
+    import pytensor_federated_torch as pft
+
+    grad_evals = 0
+
+    def counted(p):
+        nonlocal grad_evals
+        grad_evals += 1
+        return model.logp(p)
+
+    chains, warmup, draws = nuts
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = pft.samplers.sample(counted, model.init_params(), generator=gen, num_warmup=warmup,
+                              num_samples=draws, num_chains=chains)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    s = res.samples
+    max_rhat = max(float(v.max()) for v in pft.samplers.split_rhat(s).values())
+    return res, {
+        "chains": chains, "warmup": warmup, "draws": draws, "wall_s": wall,
+        "grad_evals": grad_evals, "ms_per_grad_eval": wall * 1e3 / max(grad_evals, 1),
+        "mean_tree_depth": float(res.stats["depth"].float().mean()),
+        "divergence_share": float(res.stats["diverging"].float().mean()),
+        "max_split_rhat": max_rhat,
+        "finite": all(bool(torch.isfinite(v).all()) for v in s.values()),
+    }
+
+
+def phase_radon(dev="cuda", nuts=MODEL_NUTS):
+    """BASELINE config 3 on ``dev``: values against float64 on the CPU,
+    time per evaluation, NUTS with the JAX test's recovery gate."""
+    import pytensor_federated_torch as pft
+
+    data, true = pft.generate_radon_data(**RADON, device=dev)
+    model = pft.HierarchicalRadonGLM(data)
+    model64 = pft.HierarchicalRadonGLM(_as_f64_cpu(data))
+    values_ok, values = _against_f64(model, model64, _three_points(model.init_params()))
+    p = model.init_params()
+    ms = _ms_per_eval(lambda: model.logp_and_grad(p), dev, 50)
+    launches = _launches(lambda: model.logp_and_grad(p), dev, 10)
+    res, run = _model_nuts(model, dev, seed=11, nuts=nuts)
+    beta_median = float(res.samples["beta"].median())
+    run["beta_median"], run["beta_true"] = beta_median, true["beta"]
+    ok = (values_ok and run["finite"] and run["divergence_share"] < 0.1
+          and abs(beta_median - true["beta"]) < 0.3 and run["max_split_rhat"] < 1.1)
+    return ok, {
+        "phase": "radon", "config": "BASELINE.json config 3, bench_suite.py:713",
+        "size": {"counties": data.n_shards, "max_obs": data.max_len,
+                 "observations": int(data.mask.sum()),
+                 "params": sum(t.numel() for t in model.init_params().values())},
+        "tolerance": {"value_rtol": MODEL_VALUE_RTOL, "grad_rtol": MODEL_GRAD_RTOL,
+                      "grad_atol": f"{MODEL_GRAD_ATOL_OF_MAX} x max|grad of the leaf|",
+                      "against": "the same model in float64 on the CPU"},
+        "values": values,
+        "ms_per_logp_and_grad": ms,
+        "cuda_launches_per_logp_and_grad": launches,
+        "nuts": run,
+        "gates": "finite, divergence share < 0.1, |median beta - true| < 0.3, split R-hat < 1.1",
+    }
+
+
+def phase_logistic(dev="cuda", nuts=MODEL_NUTS, large_obs=LOGISTIC_LARGE_OBS):
+    """BASELINE config 5 on ``dev``: the three exact forms behind
+    bench_suite's equality gate, the hierarchical model and the bf16
+    compute dtype against float64 on the CPU, times per evaluation at two
+    sizes, NUTS on the plain form."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.samplers.util import ravel
+
+    forms = {"vmapped": {}, "suffstats": {"use_suffstats": True}, "flat": {"flatten": True}}
+    data, true = pft.generate_logistic_data(**LOGISTIC, device=dev)
+    models = {name: pft.FederatedLogisticRegression(data, **kw) for name, kw in forms.items()}
+    plain = models["vmapped"]
+    flat0, unravel = ravel(plain.init_params())
+    gate, gate_ok = [], True
+    for name, x in (("x0", flat0), ("x0+0.1*arange", flat0 + 0.1 * torch.arange(
+            flat0.shape[0], dtype=flat0.dtype, device=flat0.device))):
+        ref = plain.logp_and_grad(unravel(x))
+        for other in ("suffstats", "flat"):
+            o_ok, err = _flat_close(models[other].logp_and_grad(unravel(x)), ref)
+            gate.append({"point": name, "form": other, **err, "ok": o_ok})
+            gate_ok &= o_ok
+
+    data64 = _as_f64_cpu(data)
+    plain_ok, plain_values = _against_f64(plain, pft.FederatedLogisticRegression(data64),
+                                          _three_points(plain.init_params()))
+    bf16 = pft.FederatedLogisticRegression(data, compute_dtype=torch.bfloat16)
+    bf16_ok, bf16_values = _against_f64(
+        bf16, pft.FederatedLogisticRegression(data64), _three_points(plain.init_params()),
+        value_rtol=BF16_VALUE_RTOL, grad_rtol=BF16_GRAD_TOL, grad_atol_of_max=BF16_GRAD_TOL)
+    hdata, _ = pft.generate_hier_logistic_data(**LOGISTIC, device=dev)
+    hier = pft.HierarchicalLogisticRegression(hdata)
+    hier_ok, hier_values = _against_f64(hier, pft.HierarchicalLogisticRegression(_as_f64_cpu(hdata)),
+                                        _three_points(hier.init_params()))
+
+    timing = {}
+    for n_obs in (LOGISTIC["n_obs"], large_obs):
+        tdata = data if n_obs == LOGISTIC["n_obs"] else pft.generate_logistic_data(
+            **{**LOGISTIC, "n_obs": n_obs}, device=dev)[0]
+        row = {"x_bytes": int(tdata.data[0].numel()) * 4}
+        for name, kw in forms.items():
+            m = models[name] if tdata is data else pft.FederatedLogisticRegression(tdata, **kw)
+            p = m.init_params()
+            row[name + "_ms"] = _ms_per_eval(lambda: m.logp_and_grad(p), dev, 50)
+            row[name + "_cuda_launches"] = _launches(lambda: m.logp_and_grad(p), dev, 10)
+        timing[f"{LOGISTIC['n_shards']}x{n_obs}x{LOGISTIC['n_features']}"] = row
+        del tdata
+
+    res, run = _model_nuts(plain, dev, seed=13, nuts=nuts)
+    recovered = {}
+    for name, want in (("w", torch.as_tensor(true["w"], dtype=torch.float32)),
+                       ("b", torch.tensor(true["b"], dtype=torch.float32))):
+        d = res.samples[name].reshape(-1, *want.shape).cpu()
+        mean, sd = d.mean(0), d.std(0)
+        recovered[name] = {"mean": mean.tolist(), "sd": sd.tolist(), "true": want.tolist(),
+                           "within_4sd": bool(((mean - want).abs() <= 4 * sd).all())}
+    run["recovered"] = recovered
+    ok = (gate_ok and plain_ok and bf16_ok and hier_ok and run["finite"]
+          and run["max_split_rhat"] < 1.1 and all(r["within_4sd"] for r in recovered.values()))
+    return ok, {
+        "phase": "logistic", "config": "BASELINE.json config 5, bench_suite.py:747",
+        "size": LOGISTIC,
+        "equality_gate": {"tolerance": {"value_rtol": AUTOGRAD_RTOL_VALUE,
+                                        "grad_rtol": AUTOGRAD_RTOL_GRAD,
+                                        "grad_atol": AUTOGRAD_ATOL_GRAD,
+                                        "source": "bench_suite.py's equality gate"},
+                          "points": gate},
+        "tolerance": {"value_rtol": MODEL_VALUE_RTOL, "grad_rtol": MODEL_GRAD_RTOL,
+                      "grad_atol": f"{MODEL_GRAD_ATOL_OF_MAX} x max|grad of the leaf|",
+                      "bf16": {"value_rtol": BF16_VALUE_RTOL, "grad_rtol": BF16_GRAD_TOL,
+                               "grad_atol": f"{BF16_GRAD_TOL} x max|grad of the leaf|"},
+                      "against": "the plain form in float64 on the CPU"},
+        "vmapped_vs_f64": plain_values,
+        "bf16_vs_f64": bf16_values,
+        "hierarchical_vs_f64": hier_values,
+        "timing": timing,
+        "nuts": run,
+        "gates": "equality gate, values, finite, split R-hat < 1.1, every w and b within 4 sd",
+    }
+
+
+def phase_lv_ode(dev="cuda", reps=20):
+    """BASELINE config 4 on ``dev``: values against float64 on the CPU,
+    time and CUDA launches per evaluation, and find_map against its
+    float64 run on the CPU."""
+    import pytensor_federated_torch as pft
+
+    model, meta = pft.make_lv_model(LV_SHARDS, device=dev)
+    model64 = pft.LotkaVolterraModel(_as_f64_cpu(model.observations), meta["y0"], meta["dt"],
+                                     meta["n_steps"], meta["obs_idx"])
+    values_ok, values = _against_f64(model, model64, _three_points(model.init_params()))
+    p = model.init_params()
+    ms = _ms_per_eval(lambda: model.logp_and_grad(p), dev, reps)
+    launches = _launches(lambda: model.logp_and_grad(p), dev, 3)
+    _sync(dev)
+    t0 = time.perf_counter()
+    est = model.find_map(**LV_FIND_MAP)
+    _sync(dev)
+    map_s = time.perf_counter() - t0
+    est64 = pft.samplers.find_map(
+        model64.logp, {k: v.cpu().double() for k, v in model.init_params().items()}, **LV_FIND_MAP)
+    map_err = float((est["log_theta"].cpu().double() - est64["log_theta"]).abs().max())
+    ok = values_ok and map_err <= LV_FIND_MAP_ATOL and (
+        launches is not None or torch.device(dev).type != "cuda")
+    return ok, {
+        "phase": "lv_ode", "config": "BASELINE.json config 4, bench_suite.py:722",
+        "size": {"shards": LV_SHARDS, "obs": len(meta["obs_idx"]), "species": 2,
+                 "rk4_steps": meta["n_steps"]},
+        "tolerance": {"value_rtol": MODEL_VALUE_RTOL, "grad_rtol": MODEL_GRAD_RTOL,
+                      "grad_atol": f"{MODEL_GRAD_ATOL_OF_MAX} x max|grad of the leaf|",
+                      "find_map_log_theta_atol": LV_FIND_MAP_ATOL,
+                      "against": "the same model in float64 on the CPU"},
+        "values": values,
+        "ms_per_logp_and_grad": ms,
+        "timed_evals": reps,
+        "cuda_launches_per_logp_and_grad": launches,
+        "find_map": {**LV_FIND_MAP, "wall_s": map_s, "log_theta": est["log_theta"].tolist(),
+                     "log_theta_f64_cpu": est64["log_theta"].tolist(),
+                     "max_abs_err": map_err, "theta_true": meta["theta"].tolist()},
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["kernels", "federated"],
+    parser.add_argument("--only", choices=["kernels", "federated", "models"],
                         help="kernels: device, build and kernels only; federated: device, "
-                             "build, nuts and federated only")
+                             "build, nuts and federated only; models: device, build, radon, "
+                             "logistic and lv_ode only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -835,18 +1138,25 @@ def main() -> int:
         ("nuts_large",
          lambda: phase_nuts("nuts_large", LARGE_PATH[1], 1, 600, 900, dense_mass=True)),
         ("federated", lambda: phase_federated(lines.get("nuts", {}))),
+        ("radon", phase_radon),
+        ("logistic", phase_logistic),
+        ("lv_ode", phase_lv_ode),
     ]
     if args.only == "kernels":
         phases = phases[:1]
     elif args.only == "federated":
         phases = [ph for ph in phases if ph[0] in ("nuts", "federated")]
+    elif args.only == "models":
+        phases = [ph for ph in phases if ph[0] in ("radon", "logistic", "lv_ode")]
     all_ok, lines = True, {}
     for pname, fn in phases:
+        t0 = time.perf_counter()
         try:
             ok, line = fn()
         except Exception:
             traceback.print_exc()
             ok, line = False, {"phase": pname, "error": traceback.format_exc(limit=3)}
+        line["phase_s"] = time.perf_counter() - t0
         line["ok"] = ok
         emit(line)
         lines[pname] = line

@@ -3,8 +3,11 @@
 The flagship path of the JAX package, rewritten in PyTorch: heterogeneous
 shards packed with a mask, the federated linear-regression posterior,
 its fused logp+grad reduction as a hand-written Hopper kernel, and NUTS
-with warmup adaptation and convergence diagnostics.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+with warmup adaptation and convergence diagnostics.  Beside it, the
+models of BASELINE.json configs 3-5 (the radon GLM, the Lotka-Volterra
+ODE, the federated logistic regressions), ``find_map``, Metropolis and
+the float32 precision policy.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 
 The federation wire: a node serves its logp+grad over npwire frames on
 TCP (:mod:`.service`), byte for byte the JAX package's frames, and a
@@ -12,14 +15,23 @@ driver fans out to its nodes with :class:`ParallelLogpGrad`.  This
 package imports neither JAX, nor the JAX package, nor gRPC.
 """
 
-from . import samplers
+from . import precision, samplers
 from .convert import params_from_jax, sharded_data_from_jax
-from .models.linear import (
+from .models import (
     FederatedLinearRegression,
+    FederatedLogisticRegression,
+    HierarchicalLogisticRegression,
+    HierarchicalRadonGLM,
+    LotkaVolterraModel,
+    generate_hier_logistic_data,
+    generate_logistic_data,
+    generate_lv_data,
     generate_node_data,
-    linreg_prior_logp,
+    generate_radon_data,
     linreg_suffstats,
+    make_lv_model,
 )
+from .models.linear import linreg_prior_logp
 from .ops import (
     ArraysToArraysOp,
     LogpGradOp,
@@ -30,7 +42,8 @@ from .ops import (
 )
 from .ops.linreg_kernel import linreg_logp_grad_fn, linreg_reductions, linreg_reductions_ref
 from .parallel.packing import ShardedData, pack_shards
-from .parallel.sharded import FederatedLogp
+from .parallel.sharded import FederatedLogp, NoFederatedShards, sharded_compute
+from .precision import pdot, split_dot, wrap_policy
 from .signatures import ShapeDtypeStruct, spec_of
 from .utils import LOG_2PI, resolve_device
 from .wrappers import logp_grad_from_logp, wrap_logp_fn, wrap_logp_grad_fn
@@ -39,27 +52,42 @@ __all__ = [
     "LOG_2PI",
     "ArraysToArraysOp",
     "FederatedLinearRegression",
+    "FederatedLogisticRegression",
     "FederatedLogp",
+    "HierarchicalLogisticRegression",
+    "HierarchicalRadonGLM",
     "LogpGradOp",
     "LogpOp",
+    "LotkaVolterraModel",
+    "NoFederatedShards",
     "ParallelLogpGrad",
     "ShapeDtypeStruct",
     "ShardedData",
     "blackbox_logp_grad",
+    "generate_hier_logistic_data",
+    "generate_logistic_data",
+    "generate_lv_data",
     "generate_node_data",
+    "generate_radon_data",
     "linreg_logp_grad_fn",
     "linreg_prior_logp",
     "linreg_reductions",
     "linreg_reductions_ref",
     "linreg_suffstats",
     "logp_grad_from_logp",
+    "make_lv_model",
     "pack_shards",
     "parallel_host_call",
     "params_from_jax",
+    "pdot",
+    "precision",
     "resolve_device",
     "samplers",
+    "sharded_compute",
     "sharded_data_from_jax",
     "spec_of",
+    "split_dot",
     "wrap_logp_fn",
     "wrap_logp_grad_fn",
+    "wrap_policy",
 ]

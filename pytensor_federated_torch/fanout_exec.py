@@ -377,16 +377,17 @@ def run_members(
     never see a sibling's.  All members settle before the first failure
     (in member order) is raised.
 
-    ``node_pool`` (a :class:`~pytensor_federated_tpu.routing.NodePool`,
-    optional) routes member failures through the pool's retry/failover
-    policy: a member raising a TRANSIENT error
+    ``node_pool`` (optional) routes member failures through a pool's
+    retry/failover policy.  This package has no pool yet (the JAX
+    package's ``routing`` pool and pooled client are still to be
+    ported); ``node_pool`` takes any object with ``is_transient(exc)``,
+    ``member_retries``, ``allow_retry(reason)`` and
+    ``backoff_sleep(attempt)``.  A member raising a TRANSIENT error
     (``node_pool.is_transient`` — transport trouble, never a
     deterministic compute error) is re-run up to
-    ``node_pool.member_retries`` times with the pool's jittered
-    backoff between attempts.  Members built over that pool's
-    :class:`~pytensor_federated_tpu.routing.PooledArraysClient` pick a
-    DIFFERENT healthy replica on the re-run (the failed one's breaker
-    just recorded the failure), so the retry is a failover, not an
+    ``node_pool.member_retries`` times with the pool's backoff between
+    attempts; members built over a pooled client can then pick another
+    healthy replica on the re-run, so the retry is a failover, not an
     instant replay against the dead node.  Member storage writes are
     idempotent (each attempt overwrites the member's own cells), so a
     retried member cannot corrupt a sibling's slice.  Without a pool

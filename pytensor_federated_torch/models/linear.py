@@ -190,6 +190,11 @@ class FederatedLinearRegression:
             "offsets": z(self.n_shards),
         }
 
+    def find_map(self, **kwargs):
+        from ..samplers import find_map
+
+        return find_map(self.logp, self.init_params(), **kwargs)
+
     def sample(self, *, generator: torch.Generator | None = None, **kwargs):
         """NUTS on the posterior (``samplers.sample``); the default
         generator is seeded with 0 on the model's device."""

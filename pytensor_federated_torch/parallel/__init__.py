@@ -1,4 +1,4 @@
 """Shard packing and the sharded evaluator."""
 
 from .packing import ShardedData, pack_shards
-from .sharded import FederatedLogp
+from .sharded import FederatedLogp, NoFederatedShards, sharded_compute

@@ -1,4 +1,5 @@
-"""Samplers on flat parameter vectors: NUTS and HMC, warmup, diagnostics."""
+"""Samplers on flat parameter vectors: NUTS, HMC and Metropolis, warmup,
+diagnostics, and the MAP point."""
 
 from .convergence import effective_sample_size, hdi, split_rhat, summary, tail_ess
 from .hmc import (
@@ -12,7 +13,8 @@ from .hmc import (
     leapfrog,
     sample_momentum,
 )
-from .mcmc import SampleResult, make_flat_logp_and_grad, make_kernel_step, sample
+from .mcmc import SampleResult, find_map, make_flat_logp_and_grad, make_kernel_step, sample
+from .metropolis import MetropolisState, metropolis_init, metropolis_step
 from .nuts import NUTSInfo, nuts_step
 from .util import (
     AdaptSchedule,

@@ -1,29 +1,33 @@
-"""The sampling front door: warmup adaptation, chains, draws.
+"""The sampling front door: warmup adaptation, chains, draws, MAP.
 
-Port of the JAX package's ``samplers/mcmc.py`` (``sample`` with the NUTS
-and HMC kernels).  The JAX package runs every chain as one ``vmap``
-lane of one jitted ``scan``; here the chains run one after another,
-eagerly, on the device of the initial parameters, each with its own
-``torch.Generator`` seeded from the caller's.  Returned samples keep the
-params tree with leading ``(chains, draws)`` axes, as in JAX.
+Port of the JAX package's ``samplers/mcmc.py`` (``sample`` with the
+NUTS, HMC and Metropolis kernels, and ``find_map``).  The JAX package
+runs every chain as one ``vmap`` lane of one jitted ``scan``; here the
+chains run one after another, eagerly, on the device of the initial
+parameters, each with its own ``torch.Generator`` seeded from the
+caller's.  Returned samples keep the params tree with leading
+``(chains, draws)`` axes, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..utils import value_and_grad
 from .hmc import HMCState, find_reasonable_step_size, hmc_init, hmc_step
+from .metropolis import metropolis_init, metropolis_step
 from .nuts import nuts_step
 from .util import (
     AdaptSchedule,
     da_init,
     da_update,
     flatten_logp,
+    ravel,
     welford_covariance,
     welford_init,
     welford_update,
@@ -37,18 +41,32 @@ class WarmupResult(NamedTuple):
     inv_mass: torch.Tensor
 
 
-def make_flat_logp_and_grad(logp_fn: Callable[[Any], torch.Tensor], init_params: Any):
+def make_flat_logp_and_grad(
+    logp_fn: Callable[[Any], torch.Tensor],
+    init_params: Any,
+    logp_and_grad_fn: Optional[Callable] = None,
+):
     """Flatten the target and build its value+grad over the flat vector.
 
     Returns ``(flat_logp, flat_init, unravel, lg)`` where ``lg(x) ->
-    (logp, grad)`` by one ``torch.autograd`` pass; a kernel with its own
-    gradient (``linreg_logp_grad_fn(...).data_logp``) enters through
-    ``logp_fn`` as an autograd Function.
+    (logp, grad)``; with ``logp_and_grad_fn`` (params tree -> ``(logp,
+    grads tree)``) the gradient is the one it supplies, else one
+    ``torch.autograd`` pass through ``logp_fn``.  A kernel with its own
+    gradient (``linreg_logp_grad_fn(...).data_logp``) also enters
+    through ``logp_fn`` as an autograd Function.
     """
     flat_logp, flat_init, unravel = flatten_logp(logp_fn, init_params)
 
-    def lg(x):
-        return value_and_grad(flat_logp, x)
+    if logp_and_grad_fn is not None:
+
+        def lg(x):
+            v, g = logp_and_grad_fn(unravel(x))
+            return v, ravel(g)[0]
+
+    else:
+
+        def lg(x):
+            return value_and_grad(flat_logp, x)
 
     return flat_logp, flat_init.detach(), unravel, lg
 
@@ -143,16 +161,22 @@ def sample(
     num_hmc_steps: int = 16,
     target_accept: float = 0.8,
     jitter: float = 1.0,
+    logp_and_grad_fn: Optional[Callable] = None,
     dense_mass: bool = False,
 ) -> SampleResult:
     """Run adaptive MCMC against ``logp_fn`` (params tree -> scalar).
 
-    ``kernel`` is ``"nuts"`` (default) or ``"hmc"``.  Gradients come from
-    ``torch.autograd`` through ``logp_fn``.  ``generator`` lives on the
-    device of ``init_params``, where the whole run happens; it draws the
-    initial jitter and one seed per chain.
+    ``kernel`` is ``"nuts"`` (default), ``"hmc"``, or ``"metropolis"``
+    (the reference's CI sampler).  Pass ``logp_and_grad_fn`` to supply a
+    fused value+grad (e.g. ``FederatedLogp.logp_and_grad``); otherwise
+    gradients come from ``torch.autograd`` through ``logp_fn``.
+    ``generator`` lives on the device of ``init_params``, where the
+    whole run happens; it draws the initial jitter and one seed per
+    chain.
     """
-    _, flat_init, unravel, lg = make_flat_logp_and_grad(logp_fn, init_params)
+    flat_logp, flat_init, unravel, lg = make_flat_logp_and_grad(
+        logp_fn, init_params, logp_and_grad_fn
+    )
     dtype, device = flat_init.dtype, flat_init.device
     init_flat = flat_init.expand(num_chains, -1)
     if jitter:
@@ -162,6 +186,10 @@ def sample(
     seeds = torch.randint(
         0, 2**62, (num_chains,), generator=generator, device=device
     ).tolist()
+    if kernel == "metropolis":
+        return _sample_metropolis(
+            flat_logp, unravel, init_flat, seeds, num_warmup, num_samples
+        )
     kernel_step = make_kernel_step(
         lg, kernel, max_depth=max_depth, num_hmc_steps=num_hmc_steps
     )
@@ -200,3 +228,67 @@ def sample(
         step_size=torch.stack(step_sizes),
         inv_mass=torch.stack(inv_masses),
     )
+
+
+@torch.no_grad()
+def _sample_metropolis(flat_logp, unravel, init_flat, seeds, num_warmup, num_samples):
+    """Adaptive-scale random-walk Metropolis, one chain after another.
+
+    Warmup adapts the log proposal scale Robbins-Monro style toward 0.35
+    acceptance; the scale is a device tensor throughout, so no step
+    waits for the host."""
+    device = init_flat.device
+    draws, totals, scales = [], [], []
+    for x0, seed in zip(init_flat, seeds):
+        chain_gen = torch.Generator(device=device).manual_seed(seed)
+        state = metropolis_init(flat_logp, x0)
+        log_scale = torch.zeros((), dtype=init_flat.dtype, device=device)
+        for _ in range(num_warmup):
+            prev_acc = state.n_accept
+            state = metropolis_step(flat_logp, state, chain_gen, step_size=torch.exp(log_scale))
+            log_scale = log_scale + 0.1 * ((state.n_accept - prev_acc) - 0.35)
+        step_size = torch.exp(log_scale)
+        xs, acc = [], []
+        for _ in range(num_samples):
+            state = metropolis_step(flat_logp, state, chain_gen, step_size=step_size)
+            xs.append(state.x)
+            acc.append(state.n_accept)
+        draws.append(torch.stack(xs))
+        totals.append(torch.stack(acc))
+        scales.append(step_size)
+    return SampleResult(
+        samples=unravel(torch.stack(draws)),
+        stats={"accept_total": torch.stack(totals)},
+        step_size=torch.stack(scales),
+        inv_mass=torch.ones_like(init_flat),
+    )
+
+
+def find_map(
+    logp_fn: Callable[[Any], torch.Tensor],
+    init_params: Any,
+    *,
+    num_steps: int = 500,
+    learning_rate: float = 0.05,
+    logp_and_grad_fn: Optional[Callable] = None,
+) -> Any:
+    """Maximum a-posteriori point via Adam — ``pm.find_MAP`` analog.
+
+    Adam is written out in optax's update order (b1 0.9, b2 0.999, eps
+    1e-8 added after the square root of the bias-corrected second
+    moment, eps_root 0), so a run follows the JAX package's to float32
+    rounding; the bias corrections are float32, computed on the host.
+    Runs on the device of ``init_params`` with no host sync per step."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    _, x, unravel, lg = make_flat_logp_and_grad(logp_fn, init_params, logp_and_grad_fn)
+    mu = torch.zeros_like(x)
+    nu = torch.zeros_like(x)
+    for count in range(1, num_steps + 1):
+        g = -lg(x)[1]
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * (g**2) + b2 * nu
+        bc1 = float(1 - np.float32(b1) ** count)  # float32 power, as optax's
+        bc2 = float(1 - np.float32(b2) ** count)
+        update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        x = x + (-learning_rate) * update
+    return unravel(x)

@@ -1,4 +1,5 @@
-"""The Hopper kernel on the card, against its plain PyTorch version.
+"""The Hopper kernel and the models on the card, against their plain
+PyTorch versions.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips without one, so on the CPU these count as skips.  The
@@ -14,6 +15,13 @@ magnitudes (the kernel sums float32 terms at most ~50 deep, worst case
 ~3e-6 of that sum).  The totals over shards against the float64 sum of
 the kernel's own per-shard outputs: 4e-6 times the sum of their
 magnitudes (at most 24 float32 additions deep, ~1.4e-6).
+
+The radon, logistic and Lotka-Volterra models in float32 on the card
+against the same models in float64 on the CPU: value within rtol 1e-5,
+gradient within 1e-4 |g| + 1e-5 max|g of the leaf| (float32 on the CPU
+lands ~25x inside both).  The three logistic forms on the card agree
+behind bench.py's equality gate (value rtol 2e-4, gradient rtol 2e-3 /
+atol 1e-3).
 """
 
 import numpy as np
@@ -27,7 +35,7 @@ from pytensor_federated_torch.ops.linreg_kernel import (
     linreg_reductions_and_totals,
     linreg_reductions_ref,
 )
-from pytensor_federated_torch.utils import value_and_grad
+from pytensor_federated_torch.utils import tree_map, value_and_grad
 
 SHAPES = [
     (1, 8), (5, 70), (8, 512), (12, 700), (8, 64), (5, 4099), (3, 20000),
@@ -215,3 +223,74 @@ def test_node_on_the_card_serves_the_kernel_over_tcp():
     finally:
         for c in clients:
             c.close()
+
+
+def _f64_cpu(data):
+    import pytensor_federated_torch as pft
+
+    if torch.is_tensor(data):
+        return data.cpu().double()
+    return pft.ShardedData(data=tree_map(lambda t: t.cpu().double(), data.data),
+                           mask=data.mask.cpu().double())
+
+
+def _model_pair(name, dev):
+    """(model on ``dev``, the same model in float64 on the CPU)."""
+    import pytensor_federated_torch as pft
+
+    if name == "radon":
+        data, _ = pft.generate_radon_data(16, seed=12, device=dev)
+        return pft.HierarchicalRadonGLM(data), pft.HierarchicalRadonGLM(_f64_cpu(data))
+    if name.startswith("logistic"):
+        data, _ = pft.generate_logistic_data(n_shards=64, n_obs=64, n_features=8, device=dev)
+        kw = {"logistic": {}, "logistic_suffstats": {"use_suffstats": True},
+              "logistic_flat": {"flatten": True}}[name]
+        return (pft.FederatedLogisticRegression(data, **kw),
+                pft.FederatedLogisticRegression(_f64_cpu(data), **kw))
+    if name == "hier_logistic":
+        data, _ = pft.generate_hier_logistic_data(16, n_obs=64, n_features=4, device=dev)
+        return pft.HierarchicalLogisticRegression(data), pft.HierarchicalLogisticRegression(_f64_cpu(data))
+    model, meta = pft.make_lv_model(8, device=dev)
+    return model, pft.LotkaVolterraModel(_f64_cpu(model.observations), meta["y0"], meta["dt"],
+                                         meta["n_steps"], meta["obs_idx"])
+
+
+def _points(init, seed=5):
+    from pytensor_federated_torch.samplers.util import ravel
+
+    flat, unravel = ravel(init)
+    noise = 0.3 * torch.randn(flat.shape, generator=torch.Generator().manual_seed(seed))
+    return [init, unravel(flat + 0.05), unravel(flat + noise.to(flat.device))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name", ["radon", "logistic", "logistic_suffstats", "logistic_flat", "hier_logistic", "lv"]
+)
+def test_model_on_the_card_matches_float64_on_the_cpu(name):
+    model, model64 = _model_pair(name, _cuda())
+    for p in _points(model.init_params()):
+        assert all(t.device.type == "cuda" for t in p.values())
+        v, g = model.logp_and_grad(p)
+        v64, g64 = model64.logp_and_grad({k: t.cpu().double() for k, t in p.items()})
+        assert v.device.type == "cuda"
+        np.testing.assert_allclose(float(v), float(v64), rtol=1e-5)
+        for k in g64:
+            err = (g[k].cpu().double() - g64[k]).abs()
+            assert torch.all(err <= 1e-4 * g64[k].abs() + 1e-5 * g64[k].abs().max()), k
+
+
+@pytest.mark.gpu
+def test_logistic_forms_agree_on_the_card():
+    import pytensor_federated_torch as pft
+
+    data, _ = pft.generate_logistic_data(n_shards=64, n_obs=64, n_features=8, device=_cuda())
+    forms = [pft.FederatedLogisticRegression(data, **kw)
+             for kw in ({}, {"use_suffstats": True}, {"flatten": True})]
+    for p in _points(forms[0].init_params()):
+        va, ga = forms[0].logp_and_grad(p)
+        for other in forms[1:]:
+            vb, gb = other.logp_and_grad(p)
+            np.testing.assert_allclose(float(vb), float(va), rtol=2e-4)
+            for k in ga:
+                np.testing.assert_allclose(gb[k].cpu(), ga[k].cpu(), rtol=2e-3, atol=1e-3)

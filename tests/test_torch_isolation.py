@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "pytensor_federated_tpu", "grpc")
 #: The port's subpackages and top-level modules, each imported on its own.
 SUBPACKAGES = (
     "service", "telemetry", "faultinject", "routing", "ops", "signatures",
-    "wrappers", "fanout_exec", "models", "parallel", "samplers",
+    "wrappers", "fanout_exec", "models", "parallel", "samplers", "precision",
 )
 
 

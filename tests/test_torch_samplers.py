@@ -262,3 +262,97 @@ def test_nuts_sample_agrees_with_jax(flagship):
         tmcse = tsum["sd"][k].numpy() / np.sqrt(tsum["ess"][k].numpy())
         diff = np.abs(tsum["mean"][k].numpy() - np.asarray(jsum["mean"][k]))
         assert np.all(diff <= 4 * np.sqrt(jmcse**2 + tmcse**2)), k
+
+
+# ---- Metropolis, find_map and a supplied value+grad ----
+
+
+def test_metropolis_step_matches_jax_on_the_same_draws(flagship):
+    """One step of each package from the same state with the same
+    proposal normal and uniform (the JAX step's own draws, handed to the
+    port): identical accept decisions, positions within rtol 5e-5."""
+    from pytensor_federated_tpu.samplers import metropolis as jmet
+    from pytensor_federated_torch.samplers import metropolis as tmet
+
+    jm, tm, _, _ = flagship
+    jflat, junravel = ravel_pytree(jm.init_params())
+    jlogp = jax.jit(lambda x: jm.logp(junravel(x)))
+    tlogp = make_flat_logp_and_grad(tm.logp, tm.init_params())[0]
+    accepted = set()
+    for seed, step in [(0, 0.05), (1, 0.05), (2, 0.5), (3, 0.01), (4, 2.0), (5, 0.1)]:
+        x0 = jnp.asarray(_x0(seed))
+        key = jax.random.PRNGKey(seed)
+        k_prop, k_acc = jax.random.split(key)
+        z = jax.random.normal(k_prop, x0.shape, x0.dtype)
+        u = jax.random.uniform(k_acc, dtype=x0.dtype)
+        jnew = jmet.metropolis_step(jlogp, jmet.metropolis_init(jlogp, x0), key, step_size=step)
+        with torch.no_grad():
+            tstate = tmet.metropolis_init(tlogp, _t(x0))
+            tnew = tmet.metropolis_step(tlogp, tstate, None, step_size=step, draws=(_t(z), _t(u)))
+        assert float(tnew.n_accept) == float(jnew.n_accept)
+        accepted.add(float(tnew.n_accept))
+        _close(tnew.x, jnew.x, rtol=5e-5, atol=1e-7)
+        _close(tnew.logp, jnew.logp)
+    assert accepted == {0.0, 1.0}  # both branches of the accept were taken
+
+
+def test_metropolis_sample_recovers_gaussian():
+    """Posterior mean/sd of the N(3, 2) target of tests/test_samplers.py,
+    at its gates (mean atol 0.35, sd rtol 0.25)."""
+    mu, sigma = 3.0, 2.0
+    res = pft.samplers.sample(
+        lambda p: torch.sum(-0.5 * ((p["x"] - mu) / sigma) ** 2),
+        {"x": torch.zeros(3)},
+        generator=torch.Generator().manual_seed(42),
+        num_warmup=400, num_samples=3000, num_chains=2, kernel="metropolis",
+    )
+    draws = res.samples["x"].numpy()
+    assert draws.shape == (2, 3000, 3)
+    np.testing.assert_allclose(draws.mean(axis=(0, 1)), mu, atol=0.35)
+    np.testing.assert_allclose(draws.std(axis=(0, 1)), sigma, rtol=0.25)
+    assert res.stats["accept_total"].shape == (2, 3000)
+    assert torch.all(res.stats["accept_total"][:, 1:] >= res.stats["accept_total"][:, :-1])
+    assert torch.equal(res.inv_mass, torch.ones(2, 3)) and res.step_size.shape == (2,)
+
+
+@pytest.mark.parametrize("model_name", ["radon", "linear"])
+def test_find_map_matches_jax(model_name, flagship):
+    """Adam in optax's update order: the same steps and rate end at the
+    JAX package's point within rtol 1e-3 on every leaf (float32 rounding
+    differs; atol 1e-4 for leaves that end near zero)."""
+    from pytensor_federated_tpu.models.glm import HierarchicalRadonGLM, generate_radon_data
+
+    if model_name == "radon":
+        jm = HierarchicalRadonGLM(generate_radon_data(4, mean_obs=8, seed=3)[0])
+        tm = pft.HierarchicalRadonGLM(pft.generate_radon_data(4, mean_obs=8, seed=3, device="cpu")[0])
+    else:
+        jm, tm, _, _ = flagship
+    kw = dict(num_steps=200, learning_rate=0.05)
+    want = jm.find_map(**kw)
+    got = tm.find_map(**kw)
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], rtol=1e-3, atol=1e-4)
+
+
+def test_supplied_logp_and_grad_drives_find_map_and_sample():
+    model = pft.HierarchicalRadonGLM(pft.generate_radon_data(4, mean_obs=8, seed=3, device="cpu")[0])
+    plain = pft.samplers.find_map(model.logp, model.init_params(), num_steps=30)
+    fused = pft.samplers.find_map(
+        model.logp, model.init_params(), num_steps=30, logp_and_grad_fn=model.logp_and_grad
+    )
+    for k in plain:
+        assert torch.equal(plain[k], fused[k])
+    calls = []
+
+    def lg(p):
+        calls.append(1)
+        return model.logp_and_grad(p)
+
+    res = pft.samplers.sample(
+        model.logp, model.init_params(), generator=torch.Generator().manual_seed(0),
+        num_warmup=20, num_samples=10, num_chains=1, logp_and_grad_fn=lg,
+    )
+    assert res.samples["alpha_raw"].shape == (1, 10, 4)
+    assert all(bool(torch.isfinite(v).all()) for v in res.samples.values())
+    assert len(calls) > 30
