@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only kernels   # device, build and kernels
     python3 chip_smoke.py --only federated # device, build, nuts, federated
     python3 chip_smoke.py --only models    # device, build, radon, logistic, lv_ode
+    python3 chip_smoke.py --only samplers  # device, build, nuts, wide_logistic,
+                                           # logistic, chees
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -20,12 +22,19 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    identical reruns, and the same bits from a grid capped to a few
    blocks; calls on two streams; CUDA launches per call (profiler);
    times (CUDA events, median; and the kernel's own duration from the
-   profiler) beside the bound.
+   profiler) beside the bound.  Then the chain axis: C in {1, 4, 16, 64}
+   parameter sets against the same data at 8 x 64 and 8 x 131,072, each
+   chain against the float64 plain version; each chain's bits in the
+   batch equal to the chain called alone (C = 1: to the unbatched call);
+   bitwise reruns and capped grids; one launch per call; times beside
+   the bound.
 4. ``autograd`` — value and gradient of ``prior + data_logp(kernel)`` at
    the flagship size against plain autograd and the sufficient-statistic
    form, at the origin and at a perturbed point; double backward raises.
 5. ``nuts``    — ``sample()`` with NUTS on the flagship posterior through
-   the kernel, 2 chains x 300 warmup + 300 draws.
+   the kernel, 4 chains x 300 warmup + 300 draws in lockstep: every
+   leaf is one batched evaluation of the four chains, and one kernel
+   launch (the phase counts both; they must be equal).
 6. ``nuts_large`` — the same at 8 x 131,072 observations, so the kernel
    moves real bytes on every leapfrog step: 1 chain x 600 warmup + 900
    draws with a dense mass matrix.  At this size the data pin every
@@ -64,23 +73,39 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    the vmapped, sufficient-statistic and flattened forms behind
    bench_suite's equality gate; the vmapped form, its bf16 compute dtype
    and the hierarchical model against float64 on the CPU; ms per
-   evaluation of each form at 64 x 64 x 8 and 64 x 16,384 x 8; NUTS on
-   the vmapped form, 1 x 300 + 300, every w and b within 4 sd of the
-   generating values, split R-hat < 1.1.
+   evaluation of each form at 64 x 64 x 8 and 64 x 16,384 x 8; then
+   config 8 (bench_suite.py:982): NUTS on the vmapped form, 4 chains x
+   200 warmup + 200 draws in lockstep, jitter 0.1, a cold run and a warm
+   run with another seed; samples/s and min-ESS/s of the warm run; every
+   w and b within 4 sd of the generating values, split R-hat < 1.1
+   (and bench_suite's < 1.2).
 10. ``lv_ode`` — config 4 (Lotka-Volterra, 8 shards, 128 RK4 steps):
    values against float64 on the CPU; ms (median of 20) and CUDA
    launches (profiler) per logp+grad evaluation; ``find_map`` for 100
    steps on the card against 100 steps in float64 on the CPU.  No NUTS:
    an evaluation is launch-bound at tens of ms.
+11. ``wide_logistic`` — config 7 (bench_suite.py:878): the logistic
+   regression at 8 shards x 4,096 observations x 512 features (X is 64
+   MiB), 64 chains at init + 0.01 N(0, 1), one batched value+grad per
+   form (float32 with TF32 off, bf16 compute dtype, float32_strict),
+   each chain's value and gradient against the strict form at
+   bench_suite's gates; ms per batched evaluation and its share of the
+   matching dense peak.
+12. ``chees`` — config 9 (bench_suite.py:1050): ChEES-HMC on config 5's
+   posterior, 16 chains x 200 warmup + 200 draws, jitter 0.1;
+   min-ESS/s against config 8's NUTS of the same run, leapfrog
+   gradients/s, the adapted step size and trajectory length; split
+   R-hat < 1.2 and finite draws.
 
-These three launch no kernel of the port: the JAX package computes
+Phases 8-12 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
 device line.  With ``--only kernels`` it stops after the kernels phase,
 with ``--only federated`` it runs the nuts and federated phases only,
-with ``--only models`` the radon, logistic and lv_ode phases only; none
-of these prints the kernel record line or the device line.  Any
+with ``--only models`` the radon, logistic and lv_ode phases only, with
+``--only samplers`` the nuts, wide_logistic, logistic and chees phases
+only; none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
 non-zero and prints no result.
@@ -165,6 +190,25 @@ MODEL_NUTS = (1, 300, 300)  # chains, warmup, draws (radon and logistic)
 MODEL_VALUE_RTOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX = 1e-5, 1e-4, 1e-5
 # bf16 compute_dtype against float32 arithmetic: tests/test_mixed_precision.py's band.
 BF16_VALUE_RTOL, BF16_GRAD_TOL = 2e-2, 5e-2
+# The chain axis of the kernel: C parameter sets against one data set.
+KERNEL_CHAINS = (1, 4, 16, 64)
+NUTS_CHAINS = 4  # the flagship nuts phase, in lockstep
+# Config 8 (bench_suite.py:982): NUTS on config 5, 4 chains x 200 + 200,
+# jitter 0.1, a cold run (seed 0) and the rated warm run (seed 1).
+CONFIG8_NUTS = (4, 200, 200)
+CONFIG8_JITTER, CONFIG8_SEEDS = 0.1, (0, 1)
+# Config 7 (bench_suite.py:878): wide logistic regression, 64 chains in one
+# batched evaluation, at init + 0.01 N(0, 1); its gates, anchored on the
+# float32_strict form, per chain: value rtol 2e-2, gradient rtol 5e-2 and
+# atol 5e-2 max|g| (bench_suite.py:929-939).
+WIDE = dict(n_shards=8, n_obs=4096, n_features=512, seed=77)
+WIDE_CHAINS, WIDE_JITTER = 64, 0.01
+WIDE_VALUE_RTOL, WIDE_GRAD_TOL = 2e-2, 5e-2
+WIDE_TIMED_EVALS = 30
+# Config 9 (bench_suite.py:1050): ChEES-HMC on config 5, 16 chains.
+CONFIG9_CHEES = (16, 200, 200)
+CONFIG9_JITTER, CONFIG9_SEED = 0.1, 1
+_BF16_PEAK = 989e12  # dense bf16 tensor-core rate of the H100 SXM (data sheet)
 LV_FIND_MAP = dict(num_steps=100, learning_rate=0.05)
 LV_FIND_MAP_ATOL = 1e-4  # log_theta, card against float64 on the CPU (CPU float32: 7e-8)
 
@@ -186,13 +230,15 @@ def _peak(name: str) -> tuple[str, float, float]:
     return (key, *_PEAK[key])
 
 
-def _bound(S, N, bw, flops):
-    """Least time (ms) for one call at (S, N), and what sets it: x, y and
-    mask (12 S N bytes), the offsets and the three scalars read once, the
-    (S, 4) result and the four totals written once."""
-    nbytes = 12 * S * N + 4 * S + 12 + 16 * (S + 1)
+def _bound(S, N, bw, flops, chains=1):
+    """Least time (ms) for one call at (S, N) with ``chains`` parameter
+    sets, and what sets it: x, y and mask (12 S N bytes) read once, each
+    chain's offsets and three scalars read once, each chain's (S, 4)
+    result and four totals written once; 17 float operations per
+    observation and chain."""
+    nbytes = 12 * S * N + chains * (4 * S + 12 + 16 * (S + 1))
     t_bytes = nbytes / bw * 1e3
-    t_ops = _FLOPS_PER_OBS * S * N / flops * 1e3
+    t_ops = _FLOPS_PER_OBS * chains * S * N / flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
@@ -390,13 +436,16 @@ def phase_kernels(bw, flops):
     per_forward, forward_names = _cuda_launches_per_call(forward)
     launches_ok = per_call == 1 and per_forward == 1
     ok &= pad_ok and shift_ok and streams_ok and launches_ok
+    chain_ok, chain_records = _kernel_chains(bw, flops, flush)
+    ok &= chain_ok
     return ok, {
         "phase": "kernels",
         "kernel": "linreg_reductions",
         "tolerance": {k: {"kind": v[0], "value": v[1]} for k, v in TOL.items()},
         "totals_tolerance": "4e-6 x sum over shards of |per-shard output| (float64 sum)",
         "tile": lib.linreg_tile(),
-        "persistent_blocks": lib.linreg_persistent_blocks(),
+        "persistent_blocks": {"one_chain": lib.linreg_persistent_blocks(),
+                              "batched": lib.linreg_persistent_blocks_batched()},
         "shapes": records,
         "padding_inert": pad_ok,
         "scalar_path_ok": shift_ok,
@@ -404,12 +453,73 @@ def phase_kernels(bw, flops):
         "cuda_launches_per_call": per_call,
         "cuda_launches_per_forward": per_forward,
         "device_activity": sorted(set(names) | set(forward_names)),
-        "bound_note": "the larger of 12*S*N + 4*S + 12 bytes read and 16*(S+1) written over "
-                      f"the peak memory rate and {_FLOPS_PER_OBS}*S*N float32 operations over "
-                      "the peak float32 rate",
+        "chains": chain_records,
+        "bound_note": "the larger of 12*S*N + C*(4*S + 12) bytes read and 16*C*(S+1) written "
+                      f"over the peak memory rate and {_FLOPS_PER_OBS}*C*S*N float32 operations "
+                      "over the peak float32 rate (C = 1 without a chain axis)",
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
     }
+
+
+def _chain_case(S, N, chains, seed, device):
+    """The kernel's inputs at (S, N) with ``chains`` parameter sets near
+    test_pallas.py's: scalars (C, 3), offsets (C, S), shared data."""
+    scalars, offsets, x, y, mask = _case(S, N, seed, device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    scalars = scalars + 0.1 * torch.randn((chains, 3), generator=g, device=device)
+    offsets = offsets + torch.randn((chains, S), generator=g, device=device)
+    return scalars, offsets, x, y, mask
+
+
+def _kernel_chains(bw, flops, flush):
+    """The chain axis: C parameter sets in one launch, at the flagship and
+    the large size.  Each chain against the float64 plain version; each
+    chain's bits against the same chain called alone (the unbatched call:
+    for C = 1 that is the check that C = 1 equals the unbatched call);
+    reruns and a capped grid bitwise; launches per call; times."""
+    from pytensor_federated_torch.ops import linreg_kernel
+    from pytensor_federated_torch.ops.linreg_kernel import (
+        linreg_reductions,
+        linreg_reductions_and_totals,
+        linreg_reductions_ref,
+    )
+
+    dev = torch.device("cuda")
+    records, ok = [], True
+    for S, N in (FLAGSHIP, LARGE_PATH):
+        for C in KERNEL_CHAINS:
+            inputs = _chain_case(S, N, C, seed=400 + C, device=dev)
+            sc, off, x, y, m = inputs
+            got, totals = linreg_reductions_and_totals(*inputs)
+            again, totals2 = linreg_reductions_and_totals(*inputs)
+            capped = linreg_kernel._launch(sc.unbind(-1), off, x, y, m, max_blocks=3)
+            torch.cuda.synchronize()
+            rerun = all(torch.equal(a, b) for a, b in zip(got + (totals,), again + (totals2,)))
+            grid_bits = all(torch.equal(capped[..., :S, k], got[k]) for k in range(4)) and (
+                torch.equal(capped[..., S, :], totals))
+            alone_bits, worst, max_abs = True, {k: 0.0 for k in TOL}, 0.0
+            for c in range(C):
+                one, one_totals = linreg_reductions_and_totals(sc[c], off[c], x, y, m)
+                alone_bits &= all(torch.equal(a, b[c]) for a, b in zip(one, got)) and (
+                    torch.equal(one_totals, totals[c]))
+                ratios, err = _errors([g[c] for g in got], (sc[c], off[c], x, y, m))
+                worst = {k: max(worst[k], ratios[k]) for k in worst}
+                max_abs = max(max_abs, err)
+            per_call, _ = _cuda_launches_per_call(lambda: linreg_reductions(*inputs))
+            rec = {"shape": [S, N], "chains": C, "max_abs_err": max_abs, "err_over_tol": worst,
+                   "bitwise_rerun": rerun, "bits_equal_capped_grid": grid_bits,
+                   "bits_equal_chain_alone": alone_bits, "cuda_launches_per_call": per_call}
+            rec["ms"] = _time_ms(lambda: linreg_reductions(*inputs), flush)
+            rec["device_ms"] = _device_ms(lambda: linreg_reductions(*inputs), flush)
+            rec["plain_ms"] = _time_ms(lambda: linreg_reductions_ref(*inputs), flush)
+            rec["bound_ms"], rec["bound_by"], rec["bytes"] = _bound(S, N, bw, flops, C)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            rec["ok"] = (rerun and grid_bits and alone_bits and per_call == 1
+                         and all(v <= 1.0 for v in worst.values()))
+            ok &= rec["ok"]
+            records.append(rec)
+    return ok, records
 
 
 def _flat_close(a, b):
@@ -523,8 +633,11 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
     max_rhat = max(float(v.max()) for v in rhat.values())
     recovered = _recovered(derived)
     finite = all(bool(torch.isfinite(v).all()) for v in s.values())
+    depth = res.stats["depth"].float()
+    # One kernel launch per evaluation of the chain batch (a NUTS leaf):
+    # the count of launches must equal the count of batched evaluations.
     ok = (
-        launches >= grad_evals > 0
+        launches == grad_evals > 0
         and max_rhat < 1.05
         and finite
         and all(r["within_4sd"] for r in recovered.values())
@@ -534,11 +647,17 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
         "size": [8, n_obs],
         "chains": chains, "warmup": warmup, "draws": draws, "dense_mass": dense_mass,
         "wall_s": wall,
+        # Evaluations of the whole chain batch (each one call of the
+        # vmapped posterior), and of single chains in them.
         "grad_evals": grad_evals,
+        "chain_grad_evals": grad_evals * chains,
         "kernel_launches": launches,
         "launches_per_grad_eval": launches / max(grad_evals, 1),
         "ms_per_grad_eval": wall * 1e3 / max(grad_evals, 1),
-        "mean_tree_depth": float(res.stats["depth"].float().mean()),
+        "ms_per_draw": wall * 1e3 / (chains * (warmup + draws)),
+        "mean_tree_depth": float(depth.mean()),
+        # A lockstep transition runs as many leaves as its deepest chain.
+        "mean_max_tree_depth": float(depth.max(dim=0).values.mean()),
         "divergences": int(res.stats["diverging"].sum()),
         "max_split_rhat": max_rhat,
         "recovered": recovered,
@@ -906,9 +1025,9 @@ def _launches(fn, dev, calls):
     return _cuda_launches_per_call(fn, calls)[0] if torch.device(dev).type == "cuda" else None
 
 
-def _model_nuts(model, dev, seed, nuts=MODEL_NUTS):
-    """NUTS on ``model.logp`` with gradient evaluations counted; the run's
-    draws, wall time and stats."""
+def _model_nuts(model, dev, seed, nuts=MODEL_NUTS, jitter=1.0):
+    """NUTS on ``model.logp`` with gradient evaluations (of the chain
+    batch) counted; the run's draws, wall time, stats and min-ESS/s."""
     import pytensor_federated_torch as pft
 
     grad_evals = 0
@@ -923,13 +1042,16 @@ def _model_nuts(model, dev, seed, nuts=MODEL_NUTS):
     _sync(dev)
     t0 = time.perf_counter()
     res = pft.samplers.sample(counted, model.init_params(), generator=gen, num_warmup=warmup,
-                              num_samples=draws, num_chains=chains)
+                              num_samples=draws, num_chains=chains, jitter=jitter)
     _sync(dev)
     wall = time.perf_counter() - t0
     s = res.samples
     max_rhat = max(float(v.max()) for v in pft.samplers.split_rhat(s).values())
+    min_ess = min(float(v.min()) for v in pft.samplers.effective_sample_size(s).values())
     return res, {
-        "chains": chains, "warmup": warmup, "draws": draws, "wall_s": wall,
+        "chains": chains, "warmup": warmup, "draws": draws, "jitter": jitter, "seed": seed,
+        "wall_s": wall, "samples_per_s": chains * draws / wall,
+        "min_ess": min_ess, "min_ess_per_s": min_ess / wall,
         "grad_evals": grad_evals, "ms_per_grad_eval": wall * 1e3 / max(grad_evals, 1),
         "mean_tree_depth": float(res.stats["depth"].float().mean()),
         "divergence_share": float(res.stats["diverging"].float().mean()),
@@ -971,11 +1093,12 @@ def phase_radon(dev="cuda", nuts=MODEL_NUTS):
     }
 
 
-def phase_logistic(dev="cuda", nuts=MODEL_NUTS, large_obs=LOGISTIC_LARGE_OBS):
+def phase_logistic(dev="cuda", nuts=CONFIG8_NUTS, large_obs=LOGISTIC_LARGE_OBS):
     """BASELINE config 5 on ``dev``: the three exact forms behind
     bench_suite's equality gate, the hierarchical model and the bf16
     compute dtype against float64 on the CPU, times per evaluation at two
-    sizes, NUTS on the plain form."""
+    sizes; then config 8, NUTS on the plain form with its chains in
+    lockstep, a cold run and the rated warm run."""
     import pytensor_federated_torch as pft
     from pytensor_federated_torch.samplers.util import ravel
 
@@ -1018,7 +1141,10 @@ def phase_logistic(dev="cuda", nuts=MODEL_NUTS, large_obs=LOGISTIC_LARGE_OBS):
         timing[f"{LOGISTIC['n_shards']}x{n_obs}x{LOGISTIC['n_features']}"] = row
         del tdata
 
-    res, run = _model_nuts(plain, dev, seed=13, nuts=nuts)
+    _, cold = _model_nuts(plain, dev, seed=CONFIG8_SEEDS[0], nuts=nuts, jitter=CONFIG8_JITTER)
+    res, run = _model_nuts(plain, dev, seed=CONFIG8_SEEDS[1], nuts=nuts, jitter=CONFIG8_JITTER)
+    run["cold_wall_s"] = cold["wall_s"]
+    run["max_rhat_w"] = float(pft.samplers.split_rhat(res.samples)["w"].max())
     recovered = {}
     for name, want in (("w", torch.as_tensor(true["w"], dtype=torch.float32)),
                        ("b", torch.tensor(true["b"], dtype=torch.float32))):
@@ -1028,7 +1154,8 @@ def phase_logistic(dev="cuda", nuts=MODEL_NUTS, large_obs=LOGISTIC_LARGE_OBS):
                            "within_4sd": bool(((mean - want).abs() <= 4 * sd).all())}
     run["recovered"] = recovered
     ok = (gate_ok and plain_ok and bf16_ok and hier_ok and run["finite"]
-          and run["max_split_rhat"] < 1.1 and all(r["within_4sd"] for r in recovered.values()))
+          and run["max_split_rhat"] < 1.1 and run["max_rhat_w"] < 1.2
+          and all(r["within_4sd"] for r in recovered.values()))
     return ok, {
         "phase": "logistic", "config": "BASELINE.json config 5, bench_suite.py:747",
         "size": LOGISTIC,
@@ -1046,8 +1173,9 @@ def phase_logistic(dev="cuda", nuts=MODEL_NUTS, large_obs=LOGISTIC_LARGE_OBS):
         "bf16_vs_f64": bf16_values,
         "hierarchical_vs_f64": hier_values,
         "timing": timing,
-        "nuts": run,
-        "gates": "equality gate, values, finite, split R-hat < 1.1, every w and b within 4 sd",
+        "nuts": {**run, "config": "bench_suite.py config 8 (:982), warm run rated"},
+        "gates": "equality gate, values, finite, split R-hat < 1.1 (and of w < 1.2, "
+                 "bench_suite's), every w and b within 4 sd",
     }
 
 
@@ -1092,12 +1220,114 @@ def phase_lv_ode(dev="cuda", reps=20):
     }
 
 
+def phase_wide_logistic(dev="cuda", reps=WIDE_TIMED_EVALS, wide=WIDE, chains=WIDE_CHAINS):
+    """Config 7: one batched value+grad of ``chains`` chains per form on
+    the wide logistic regression, each chain against the float32_strict
+    form at bench_suite's gates; time per batched evaluation and its
+    share of the matching dense peak."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.samplers.mcmc import (
+        make_batch_logp_and_grad,
+        make_flat_logp_and_grad,
+    )
+
+    data, _ = pft.generate_logistic_data(**wide, device=dev)
+    forms = {"f32": None, "bf16": torch.bfloat16, "f32_strict": "float32_strict"}
+    lgs = {}
+    for name, compute_dtype in forms.items():
+        model = pft.FederatedLogisticRegression(data, compute_dtype=compute_dtype)
+        flat_logp, flat0, unravel, _ = make_flat_logp_and_grad(model.logp, model.init_params())
+        lgs[name] = make_batch_logp_and_grad(flat_logp, unravel)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = flat0[None] + WIDE_JITTER * torch.randn((chains, flat0.shape[0]), generator=g, device=dev)
+    out = {name: lg(x) for name, lg in lgs.items()}
+    v_s, g_s = (t.double() for t in out["f32_strict"])
+    atol = WIDE_GRAD_TOL * float(g_s.abs().max())
+    gates, gates_ok = {}, True
+    for name in ("f32", "bf16"):
+        v, gr = (t.double() for t in out[name])
+        v_err = float(((v - v_s).abs() / v_s.abs()).max())
+        g_ratio = float(((gr - g_s).abs() / (atol + WIDE_GRAD_TOL * g_s.abs())).max())
+        finite = bool(torch.isfinite(v).all() and torch.isfinite(gr).all())
+        gates[name] = {"value_max_rel_err": v_err, "grad_err_over_tol": g_ratio,
+                       "ok": finite and v_err <= WIDE_VALUE_RTOL and g_ratio <= 1.0}
+        gates_ok &= gates[name]["ok"]
+    S, N, F = wide["n_shards"], wide["n_obs"], wide["n_features"]
+    # X @ w for every chain forward, and the product behind d/dw backward.
+    flop = 2 * (2 * S * N * F * chains)
+    f32_peak = _peak(torch.cuda.get_device_name(0) if torch.device(dev).type == "cuda" else "")[2]
+    timing = {}
+    for name, lg in lgs.items():
+        ms = _ms_per_eval(lambda: lg(x), dev, reps)
+        peak = _BF16_PEAK if name == "bf16" else f32_peak
+        timing[name] = {"ms_per_batched_eval": ms, "gflop_per_s": flop / (ms * 1e-3) / 1e9,
+                        "share_of_peak": flop / (ms * 1e-3) / peak,
+                        "peak": "bf16 tensor cores" if name == "bf16" else "float32, no tensor cores",
+                        "cuda_launches_per_eval": _launches(lambda: lg(x), dev, 3)}
+    return gates_ok, {
+        "phase": "wide_logistic", "config": "bench_suite.py config 7 (:878)",
+        "size": {**wide, "chains": chains, "x_bytes": S * N * F * 4},
+        "flop_per_batched_eval": flop,
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
+        "tolerance": {"value_rtol": WIDE_VALUE_RTOL, "grad_rtol": WIDE_GRAD_TOL,
+                      "grad_atol": f"{WIDE_GRAD_TOL} x max|grad of f32_strict|",
+                      "anchor": "f32_strict", "source": "bench_suite.py:929-939"},
+        "gates": gates,
+        "timing": timing,
+    }
+
+
+def phase_chees(nuts_line, dev="cuda", chees=CONFIG9_CHEES):
+    """Config 9: ChEES-HMC on config 5's posterior; min-ESS/s against
+    config 8's NUTS of the same run (``nuts_line``: the logistic phase's
+    ``nuts`` record)."""
+    import pytensor_federated_torch as pft
+
+    data, _ = pft.generate_logistic_data(**LOGISTIC, device=dev)
+    model = pft.FederatedLogisticRegression(data)
+    chains, warmup, draws = chees
+    gen = torch.Generator(device=dev).manual_seed(CONFIG9_SEED)
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = pft.samplers.chees_sample(model.logp, model.init_params(), generator=gen,
+                                    num_warmup=warmup, num_samples=draws, num_chains=chains,
+                                    jitter=CONFIG9_JITTER)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    s = res.samples
+    max_rhat = max(float(v.max()) for v in pft.samplers.split_rhat(s).values())
+    min_ess = min(float(v.min()) for v in pft.samplers.effective_sample_size(s).values())
+    # A lower bound: the leapfrog steps of the draw phase over the whole
+    # wall time (warmup included), as bench_suite's config 9 counts them.
+    grads = float(res.stats["n_steps"][0].sum()) * chains
+    nuts_rate = nuts_line.get("min_ess_per_s")
+    finite = all(bool(torch.isfinite(v).all()) for v in s.values())
+    ok = finite and max_rhat < 1.2
+    return ok, {
+        "phase": "chees", "config": "bench_suite.py config 9 (:1050)",
+        "size": LOGISTIC, "chains": chains, "warmup": warmup, "draws": draws,
+        "jitter": CONFIG9_JITTER, "wall_s": wall,
+        "min_ess": min_ess, "min_ess_per_s": min_ess / wall,
+        "nuts_min_ess_per_s": nuts_rate,
+        "ratio_to_nuts": (min_ess / wall) / nuts_rate if nuts_rate else None,
+        "leapfrog_grads_per_s_lower_bound": grads / wall,
+        "mean_leapfrog_steps": float(res.stats["n_steps"][0].float().mean()),
+        "step_size": float(res.step_size[0]),
+        "traj_len": float(res.extra["traj_len"]),
+        "accept_prob": float(res.stats["accept_prob"].mean()),
+        "max_split_rhat": max_rhat, "finite": finite,
+        "gates": "finite draws, split R-hat < 1.2",
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["kernels", "federated", "models"],
+    parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
-                             "logistic and lv_ode only")
+                             "logistic and lv_ode only; samplers: device, build, nuts, "
+                             "wide_logistic, logistic and chees only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1134,13 +1364,16 @@ def main() -> int:
     phases = [
         ("kernels", lambda: phase_kernels(bw, flops)),
         ("autograd", phase_autograd),
-        ("nuts", lambda: phase_nuts("nuts", FLAGSHIP[1], 2, 300, 300, dense_mass=False)),
+        ("nuts", lambda: phase_nuts("nuts", FLAGSHIP[1], NUTS_CHAINS, 300, 300,
+                                    dense_mass=False)),
         ("nuts_large",
          lambda: phase_nuts("nuts_large", LARGE_PATH[1], 1, 600, 900, dense_mass=True)),
         ("federated", lambda: phase_federated(lines.get("nuts", {}))),
         ("radon", phase_radon),
         ("logistic", phase_logistic),
         ("lv_ode", phase_lv_ode),
+        ("wide_logistic", phase_wide_logistic),
+        ("chees", lambda: phase_chees(lines.get("logistic", {}).get("nuts", {}))),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -1148,6 +1381,9 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("nuts", "federated")]
     elif args.only == "models":
         phases = [ph for ph in phases if ph[0] in ("radon", "logistic", "lv_ode")]
+    elif args.only == "samplers":
+        phases = [ph for ph in phases
+                  if ph[0] in ("nuts", "wide_logistic", "logistic", "chees")]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -1185,6 +1421,12 @@ def main() -> int:
         "bound_ms": large.get("bound_ms"),
         "bound_by": large.get("bound_by"),
         "library_ms": None,
+        # The chain axis: one launch for C parameter sets, at 8 x 131,072.
+        "chain_batched": [
+            {k: r.get(k) for k in ("chains", "ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "max_abs_err", "cuda_launches_per_call")}
+            for r in lines["kernels"].get("chains", []) if r["shape"] == list(LARGE_PATH)
+        ],
     }]})
     if not all_ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

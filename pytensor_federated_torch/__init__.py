@@ -2,8 +2,10 @@
 
 The flagship path of the JAX package, rewritten in PyTorch: heterogeneous
 shards packed with a mask, the federated linear-regression posterior,
-its fused logp+grad reduction as a hand-written Hopper kernel, and NUTS
-with warmup adaptation and convergence diagnostics.  Beside it, the
+its fused logp+grad reduction as a hand-written Hopper kernel (one
+launch for a whole batch of chains), and NUTS with warmup adaptation and
+convergence diagnostics, every chain in lockstep.  ChEES-HMC
+(``samplers.chees_sample``) adapts across such a batch.  Beside it, the
 models of BASELINE.json configs 3-5 (the radon GLM, the Lotka-Volterra
 ODE, the federated logistic regressions), ``find_map``, Metropolis and
 the float32 precision policy.  Entry points run on ``cuda`` unless the

@@ -1,60 +1,74 @@
 // Fused logp + gradient reductions of the federated linear regression,
-// written by hand for Hopper (sm_90a).
+// written by hand for Hopper (sm_90a), for C chains in one launch.
 //
 // Replaces the TPU kernel ops/pallas_kernels.py:_linreg_kernel of the JAX
-// package.  For every shard s, over its masked observations, with
-// r = y - (intercept + offset_s + slope * x) and z2 = r^2 / sigma^2:
+// package, and the batching rule of its pallas_call: under jax.vmap over
+// chains the chain axis becomes one more grid axis, so one call serves
+// every chain.  For every chain c and shard s, over the shard's masked
+// observations, with r = y - (intercept_c + offset_cs + slope_c * x) and
+// z2 = r^2 / sigma_c^2:
 //
-//     ll_s  = sum m * (-0.5 z2 - log_sigma - 0.5 log 2pi)
-//     gmu_s = sum m * r / sigma^2
-//     gx_s  = sum m * r * x / sigma^2
-//     gz_s  = sum m * (z2 - 1)
+//     ll_cs  = sum m * (-0.5 z2 - log_sigma_c - 0.5 log 2pi)
+//     gmu_cs = sum m * r / sigma_c^2
+//     gx_cs  = sum m * r * x / sigma_c^2
+//     gz_cs  = sum m * (z2 - 1)
 //
-// and the four totals over shards, sum_s (ll_s, gmu_s, gx_s, gz_s).
+// and each chain's four totals over shards.  The data x, y and mask are
+// shared by all chains; the parameters are per chain.
 //
-// What bounds it: device-memory bytes.  A call reads x, y and mask once,
-// 12*S*N bytes, and writes 16*(S+1) bytes of results; it does about 17
-// float operations for those 12 bytes, two orders of magnitude below the
-// H100's float32 operations-per-byte balance.  The design keeps the
-// memory pipe full from the first cycle to the last, in one launch:
+// What bounds it.  A call reads x, y and mask once, 12*S*N bytes, and
+// does about 17*C*S*N float operations.  With one chain that is two
+// orders of magnitude below the H100's float32 operations-per-byte
+// balance: device-memory bytes bound it.  Past C ~ 13 chains the float32
+// operations do.  The design keeps the memory pipe full for one chain and
+// reads each tile once for many:
 //
 // - Tiles.  Each shard's row of N observations is cut into tiles of kTile
-//   observations (the last one ragged); tile t = s * tiles_per_row + c.
-//   A tile's four sums go to partials[t], one float4.
-// - Persistent grid.  min(n_tiles, blocks-per-SM x SMs) blocks, the
-//   blocks per SM from the occupancy of this kernel at its register count
-//   (2 on the H100).  Block b walks tiles b, b + gridDim.x, ...
-// - Register pipeline.  While a block sums tile t, each of its threads
-//   already holds in registers its share of the block's next tile,
-//   t + gridDim.x: 16-byte streaming loads (ld.global.cs, lines evicted
-//   first, since the inputs are read once), 192 bytes per thread, so two
-//   blocks of 256 threads keep 96 KB in flight on every SM while they
-//   compute.  A tile is read this way when it is full and its three rows
-//   start on a 16-byte boundary; every other tile (a row's ragged tail,
-//   rows of a width that is not a multiple of 4, rows of x, y and mask
-//   aligned differently) is read with scalar loads when its turn comes.
-//   A ring of 3 x 48 KB stages in shared memory, fed by TMA bulk copies,
-//   one block per SM, gave the same bits and was slower at the main
-//   path's shapes on the H100 (PERF.md).
-// - One launch.  After its last tile each block draws an integer ticket
-//   (an acq_rel atomic add on an unsigned int, which also publishes the
-//   block's partials).  The block that draws the last ticket reads every
-//   partial back from L2 (__ldcg), sums each shard's partials, writes the
-//   (S, 4) result and the four totals, and puts the ticket back to 0 for
-//   the next call on its stream.
+//   observations (the last one ragged); tile t = s * tiles_per_row + j.
+// - Work items.  An item is one tile and a block of consecutive chains.
+//   The block holds the tile's observations in registers (16 per thread)
+//   and walks its chains in passes of P, computing P chains' sums from the
+//   same registers; a chain's four sums of tile t go to partials[c][t],
+//   one float4.  With one chain (P = 1) a thread also prefetches the next
+//   item's tile into registers while it sums the current one (16-byte
+//   streaming loads, ld.global.cs); with more chains (P = 4) it does not
+//   (four chains' sums and parameters take the registers the prefetch
+//   took), and the arithmetic hides the loads; the block stages each
+//   chain's parameters for the tile's shard in shared memory, one thread
+//   per chain.  Chain blocks are sized so that a few tiles still spread
+//   over the whole grid.  A full tile whose three rows start on a 16-byte
+//   boundary is read as float4; every other tile (a ragged tail, rows of a
+//   width that is not a multiple of 4, rows aligned differently) with
+//   scalar loads.
+// - Persistent grid.  min(items, blocks-per-SM x SMs) blocks, the blocks
+//   per SM from the occupancy of the kernel at its register count.  Block
+//   b walks items b, b + gridDim.x, ...; consecutive items share a tile,
+//   so blocks that run together read it from device memory once and from
+//   L2 after that.
+// - One launch.  After its last item each block draws an integer ticket
+//   (an acq_rel atomic add, which also publishes the block's partials).
+//   The block that draws the last ticket reads every partial back from L2,
+//   sums each (chain, shard) row's partials, writes the (C, S, 4) result
+//   and each chain's four totals, and puts the ticket back to 0 for the
+//   next call on its stream.
 //
-// Why reruns are bitwise equal, whatever the grid: a tile's sum depends
-// only on the tile (its path is chosen from its length and addresses;
-// each thread sums at most kTile / kThreads terms in a fixed order, then
-// a fixed shuffle tree and a fixed tree over the warps), the partials are
-// kept per tile and not per block, and the last block sums them in an
-// order fixed by (S, tiles_per_row) alone.  The ticket decides only which
-// block finishes, never the order of a float sum; there are no float
-// atomics.  The same inputs therefore give the same bits on any grid size
-// and any SM count.
+// Why the bits do not depend on the grid or on the other chains of the
+// batch.  Every float operation of a chain's sums is written with an
+// explicit rounding intrinsic (__fmaf_rn, __fmul_rn, __fadd_rn), so the
+// compiler contracts and reorders nothing, whatever the code path around
+// it (P = 1 or 4, the lane a chain takes in a pass).  A tile's sum for a
+// chain depends only on the tile and the chain's parameters: each thread
+// sums its terms in a fixed order, then a fixed shuffle tree and a fixed
+// tree over the warps.  The partials are kept per (chain, tile), the last
+// block sums each row in an order fixed by (S, tiles_per_row) alone, and
+// each chain's totals in an order fixed by S alone.  The ticket decides
+// only which block finishes, never the order of a float sum; there are no
+// float atomics.  So a chain's outputs in a batch of C equal those of the
+// same chain called alone, on any grid size and any SM count.
 //
-// The scalars (intercept, slope, log_sigma) and the offsets are read from
-// device memory, so a call needs no host copy of the parameters.
+// The parameters are read from device memory through a stride per array
+// (0 for one shared by every chain), so a call needs no host copy and no
+// gather of the parameters.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +81,33 @@ constexpr int kTile = 4096;                       // observations per tile
 constexpr int kPerThread = kTile / kThreads;      // 16 terms per thread
 constexpr int kVec = kPerThread / 4;              // float4 per array
 constexpr int kMaxDevices = 64;
+constexpr int kChainsPerPass = 4;                 // P of the batched kernel
+constexpr int kRoundsInFlight = 4;                // finishing rounds at a time
+constexpr int kRowsShared = 512;                  // rows kept in shared memory
 constexpr float kHalfLog2Pi = 0.918938533204672741780329736406f;
+
+struct Args {
+  const float* intercept;
+  const float* slope;
+  const float* log_sigma;
+  const float* offsets;
+  int64_t stride_intercept;  // elements between chains (0: shared)
+  int64_t stride_slope;
+  int64_t stride_log_sigma;
+  int64_t stride_offsets;    // row stride of the (C, S) offsets
+  const float* x;
+  const float* y;
+  const float* m;
+  float4* partials;          // (C, n_tiles)
+  float4* out;               // (C, S + 1): per-shard rows, then the totals
+  unsigned int* ticket;
+  int n_chains;
+  int n_shards;
+  int64_t n_obs;
+  int tiles_per_row;
+  int chain_block;           // chains per work item, a multiple of P
+  int n_chain_blocks;
+};
 
 struct Acc {
   float ll, gmu, gx, gz;
@@ -77,55 +117,66 @@ struct Scalars {
   float a;       // intercept + offset_s
   float slope;
   float inv_s2;  // 1 / sigma^2
-  float c;       // log_sigma + 0.5 log 2pi
+  float neg_c;   // -(log_sigma + 0.5 log 2pi)
 };
+
+__device__ __forceinline__ float inv_sigma2(float log_sigma) {
+  return expf(__fmul_rn(-2.0f, log_sigma));
+}
+
+__device__ __forceinline__ Scalars chain_scalars(const Args& a, int c, int s) {
+  const float ls = __ldg(a.log_sigma + c * a.stride_log_sigma);
+  Scalars p;
+  p.a = __fadd_rn(__ldg(a.intercept + c * a.stride_intercept),
+                  __ldg(a.offsets + c * a.stride_offsets + s));
+  p.slope = __ldg(a.slope + c * a.stride_slope);
+  p.inv_s2 = inv_sigma2(ls);
+  p.neg_c = -__fadd_rn(ls, kHalfLog2Pi);
+  return p;
+}
 
 __device__ __forceinline__ void accumulate(Acc& acc, float x, float y, float m,
                                            const Scalars& p) {
-  const float r = y - (p.a + p.slope * x);
-  const float z2 = r * r * p.inv_s2;
-  acc.ll += m * (-0.5f * z2 - p.c);
-  acc.gmu += m * r;
-  acc.gx += m * r * x;
-  acc.gz += m * (z2 - 1.0f);
+  const float r = __fsub_rn(y, __fmaf_rn(p.slope, x, p.a));
+  const float z2 = __fmul_rn(__fmul_rn(r, r), p.inv_s2);
+  // -0.5 z2 is exact, so one fused multiply-add rounds -0.5 z2 - c once.
+  acc.ll = __fmaf_rn(m, __fmaf_rn(-0.5f, z2, p.neg_c), acc.ll);
+  acc.gmu = __fmaf_rn(m, r, acc.gmu);
+  acc.gx = __fmaf_rn(__fmul_rn(m, r), x, acc.gx);
+  acc.gz = __fmaf_rn(m, __fsub_rn(z2, 1.0f), acc.gz);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
   return v;
 }
 
-// Sum over the block in a fixed order (shuffle tree within each warp, then
-// the warp sums by the first warp).  The result is valid in thread 0.
-// `sh` must not be written again until every thread has passed one more
-// __syncthreads: callers alternate between two buffers.
-__device__ __forceinline__ Acc block_sum(Acc a, float (*sh)[kWarps]) {
+// Sums each of the V values over the block in a fixed order (shuffle tree
+// within each warp, then the warp sums by the first warp).  The results
+// are valid in thread 0.  `sh` must not be written again until every
+// thread has passed one more __syncthreads: callers alternate between two
+// buffers.
+template <int V>
+__device__ __forceinline__ void block_sum(float (&v)[V], float (*sh)[kWarps]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  a.ll = warp_sum(a.ll);
-  a.gmu = warp_sum(a.gmu);
-  a.gx = warp_sum(a.gx);
-  a.gz = warp_sum(a.gz);
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = warp_sum(v[i]);
   if (lane == 0) {
-    sh[0][warp] = a.ll;
-    sh[1][warp] = a.gmu;
-    sh[2][warp] = a.gx;
-    sh[3][warp] = a.gz;
+#pragma unroll
+    for (int i = 0; i < V; ++i) sh[i][warp] = v[i];
   }
   __syncthreads();
-  Acc t = {0.f, 0.f, 0.f, 0.f};
   if (warp == 0) {
     const bool live = lane < kWarps;
-    t.ll = warp_sum(live ? sh[0][lane] : 0.f);
-    t.gmu = warp_sum(live ? sh[1][lane] : 0.f);
-    t.gx = warp_sum(live ? sh[2][lane] : 0.f);
-    t.gz = warp_sum(live ? sh[3][lane] : 0.f);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = warp_sum(live ? sh[i][lane] : 0.f);
   }
-  return t;
 }
 
-// --- the kernel ------------------------------------------------------------
+// --- tiles -------------------------------------------------------------------
 
 struct Tile {
   int s;           // shard (row)
@@ -134,35 +185,44 @@ struct Tile {
   bool vec;        // full and 16-byte aligned: read as float4
 };
 
-__device__ __forceinline__ Tile tile_at(int t, int tiles_per_row,
-                                        int64_t n_obs, const float* x,
-                                        const float* y, const float* m) {
+__device__ __forceinline__ Tile tile_at(int t, const Args& a) {
   Tile tl;
-  tl.s = t / tiles_per_row;
-  tl.lo = static_cast<int64_t>(t - tl.s * tiles_per_row) * kTile;
-  const int64_t left = n_obs - tl.lo;
+  tl.s = t / a.tiles_per_row;
+  tl.lo = static_cast<int64_t>(t - tl.s * a.tiles_per_row) * kTile;
+  const int64_t left = a.n_obs - tl.lo;
   tl.n = left < kTile ? static_cast<int>(left) : kTile;
-  const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(x + off) |
-                          reinterpret_cast<uintptr_t>(y + off) |
-                          reinterpret_cast<uintptr_t>(m + off);
+  const int64_t off = static_cast<int64_t>(tl.s) * a.n_obs + tl.lo;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(a.x + off) |
+                          reinterpret_cast<uintptr_t>(a.y + off) |
+                          reinterpret_cast<uintptr_t>(a.m + off);
   tl.vec = tl.n == kTile && (align & 15u) == 0;
   return tl;
 }
 
-// A thread's share of a full tile: float4 k of each array is at
-// threadIdx.x + k * kThreads.
+// A thread's share of a tile.  Full aligned tiles: float4 k of each array
+// is at threadIdx.x + k * kThreads.  Other tiles: observation
+// threadIdx.x + i * kThreads is component i % 4 of float4 i / 4 (those at
+// or past the tile's end are not read and not summed).
 struct Regs {
   float4 x[kVec], y[kVec], m[kVec];
 };
 
-__device__ __forceinline__ void load_tile(Regs& r, const Tile& tl,
-                                          int64_t n_obs, const float* x,
-                                          const float* y, const float* m) {
-  const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
-  const float4* x4 = reinterpret_cast<const float4*>(x + off) + threadIdx.x;
-  const float4* y4 = reinterpret_cast<const float4*>(y + off) + threadIdx.x;
-  const float4* m4 = reinterpret_cast<const float4*>(m + off) + threadIdx.x;
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void set_comp(float4& v, int i, float f) {
+  if (i == 0) v.x = f;
+  else if (i == 1) v.y = f;
+  else if (i == 2) v.z = f;
+  else v.w = f;
+}
+
+__device__ __forceinline__ void load_vec(Regs& r, const Tile& tl, const Args& a) {
+  const int64_t off = static_cast<int64_t>(tl.s) * a.n_obs + tl.lo;
+  const float4* x4 = reinterpret_cast<const float4*>(a.x + off) + threadIdx.x;
+  const float4* y4 = reinterpret_cast<const float4*>(a.y + off) + threadIdx.x;
+  const float4* m4 = reinterpret_cast<const float4*>(a.m + off) + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     r.x[k] = __ldcs(x4 + k * kThreads);
@@ -171,63 +231,143 @@ __device__ __forceinline__ void load_tile(Regs& r, const Tile& tl,
   }
 }
 
+__device__ __forceinline__ void load_scalar(Regs& r, const Tile& tl,
+                                            const Args& a) {
+  const int64_t off = static_cast<int64_t>(tl.s) * a.n_obs + tl.lo;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int j = threadIdx.x + i * kThreads;
+    if (j < tl.n) {
+      set_comp(r.x[i / 4], i % 4, __ldg(a.x + off + j));
+      set_comp(r.y[i / 4], i % 4, __ldg(a.y + off + j));
+      set_comp(r.m[i / 4], i % 4, __ldg(a.m + off + j));
+    }
+  }
+}
+
+// P chains' sums over the thread's share of a tile, each chain's terms in
+// the same order.
+template <int P>
+__device__ __forceinline__ void sum_tile(Acc (&acc)[P], const Regs& r,
+                                         const Tile& tl,
+                                         const Scalars (&p)[P]) {
+#pragma unroll
+  for (int j = 0; j < P; ++j) acc[j] = Acc{0.f, 0.f, 0.f, 0.f};
+  if (tl.vec) {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+          accumulate(acc[j], comp(r.x[k], q), comp(r.y[k], q),
+                     comp(r.m[k], q), p[j]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      if (static_cast<int>(threadIdx.x) + i * kThreads < tl.n) {
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+          accumulate(acc[j], comp(r.x[i / 4], i % 4), comp(r.y[i / 4], i % 4),
+                     comp(r.m[i / 4], i % 4), p[j]);
+      }
+    }
+  }
+}
+
+// --- the kernel ----------------------------------------------------------------
+
+template <int P>
 __global__ void __launch_bounds__(kThreads, 2)
-    linreg_reductions_kernel(const float* __restrict__ intercept,
-                             const float* __restrict__ slope,
-                             const float* __restrict__ log_sigma,
-                             const float* __restrict__ offsets,
-                             const float* __restrict__ x,
-                             const float* __restrict__ y,
-                             const float* __restrict__ m,
-                             float4* __restrict__ partials,
-                             float4* __restrict__ out,
-                             unsigned int* __restrict__ ticket, int n_shards,
-                             int64_t n_obs, int tiles_per_row) {
-  __shared__ float sh[2][4][kWarps];
+    linreg_reductions_kernel(const Args a) {
+  __shared__ float sh[2][4 * P][kWarps];
+  __shared__ Scalars staged[P > 1 ? kThreads : 1];
+  __shared__ float4 rows_sh[kRowsShared];
   __shared__ bool last;
 
   const int tid = threadIdx.x;
-  const int n_tiles = n_shards * tiles_per_row;
-  const float ls = __ldg(log_sigma);
-  const float b0 = __ldg(intercept);
-  const float b1 = __ldg(slope);
-  const float inv_s2 = expf(-2.0f * ls);
+  const int n_tiles = a.n_shards * a.tiles_per_row;
+  const int n_items = n_tiles * a.n_chain_blocks;
 
-  // `next` holds the block's next tile once it is known to be full and
-  // aligned; `tn` describes it.
+  // With P = 1 there is one chain, whose parameters (but the shard's
+  // offset) are read once; `next` holds the block's next tile once it is
+  // known to be full and aligned, and `tn` describes it.
   Regs next;
-  Tile tn = tile_at(blockIdx.x, tiles_per_row, n_obs, x, y, m);
-  if (tn.vec) load_tile(next, tn, n_obs, x, y, m);
+  Tile tn;
+  float ls1 = 0.f, b0 = 0.f, b1 = 0.f, inv_s2_1 = 0.f;
+  if (P == 1) {
+    ls1 = __ldg(a.log_sigma);
+    b0 = __ldg(a.intercept);
+    b1 = __ldg(a.slope);
+    inv_s2_1 = inv_sigma2(ls1);
+    tn = tile_at(blockIdx.x / a.n_chain_blocks, a);
+    if (tn.vec) load_vec(next, tn, a);
+  }
 
   int i = 0;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++i) {
-    const Tile tl = tn;
-    const Regs cur = next;
-    if (t + gridDim.x < n_tiles) {
-      tn = tile_at(t + gridDim.x, tiles_per_row, n_obs, x, y, m);
-      if (tn.vec) load_tile(next, tn, n_obs, x, y, m);
-    }
-    const Scalars p = {b0 + __ldg(offsets + tl.s), b1, inv_s2,
-                       ls + kHalfLog2Pi};
-    Acc acc = {0.f, 0.f, 0.f, 0.f};
-    if (tl.vec) {
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        accumulate(acc, cur.x[k].x, cur.y[k].x, cur.m[k].x, p);
-        accumulate(acc, cur.x[k].y, cur.y[k].y, cur.m[k].y, p);
-        accumulate(acc, cur.x[k].z, cur.y[k].z, cur.m[k].z, p);
-        accumulate(acc, cur.x[k].w, cur.y[k].w, cur.m[k].w, p);
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int t = w / a.n_chain_blocks;
+    const int cb = w - t * a.n_chain_blocks;
+    Tile tl;
+    Regs cur;
+    if (P == 1) {
+      tl = tn;
+      cur = next;
+      if (w + gridDim.x < n_items) {
+        tn = tile_at((w + gridDim.x) / a.n_chain_blocks, a);
+        if (tn.vec) load_vec(next, tn, a);
       }
     } else {
-      const int64_t off = static_cast<int64_t>(tl.s) * n_obs + tl.lo;
+      tl = tile_at(t, a);
+      if (tl.vec) load_vec(cur, tl, a);
+    }
+    if (!tl.vec) load_scalar(cur, tl, a);
+
+    const int c_lo = cb * a.chain_block;
+    const int c_hi = min(a.n_chains, c_lo + a.chain_block);
+    for (int c_stage = c_lo; c_stage < c_hi; c_stage += kThreads) {
+      const int c_end = min(c_hi, c_stage + kThreads);
+      if (P > 1) {
+        // Each thread stages one chain's parameters for this tile's shard
+        // (one expf per chain, not per thread and pass).
+        __syncthreads();  // the previous chains' readers are done
+        if (tid < c_end - c_stage) staged[tid] = chain_scalars(a, c_stage + tid, tl.s);
+        __syncthreads();
+      }
+      for (int c0 = c_stage; c0 < c_end; c0 += P, ++i) {
+        // Lanes past the last chain compute on the last chain's parameters
+        // and are not stored.
+        Scalars p[P];
 #pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        const int j = tid + k * kThreads;
-        if (j < tl.n) accumulate(acc, x[off + j], y[off + j], m[off + j], p);
+        for (int j = 0; j < P; ++j) {
+          // chain_scalars(a, c, tl.s), as one chain computes it.
+          p[j] = P == 1 ? Scalars{__fadd_rn(b0, __ldg(a.offsets + tl.s)), b1, inv_s2_1,
+                                  -__fadd_rn(ls1, kHalfLog2Pi)}
+                        : staged[min(c0 + j, c_end - 1) - c_stage];
+        }
+        Acc acc[P];
+        sum_tile<P>(acc, cur, tl, p);
+        float v[4 * P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          v[4 * j] = acc[j].ll;
+          v[4 * j + 1] = acc[j].gmu;
+          v[4 * j + 2] = acc[j].gx;
+          v[4 * j + 3] = acc[j].gz;
+        }
+        block_sum<4 * P>(v, sh[i & 1]);
+        if (tid == 0) {
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            if (c0 + j < c_end)
+              a.partials[static_cast<int64_t>(c0 + j) * n_tiles + t] =
+                  make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+          }
+        }
       }
     }
-    const Acc sum = block_sum(acc, sh[i & 1]);
-    if (tid == 0) partials[t] = make_float4(sum.ll, sum.gmu, sum.gx, sum.gz);
   }
 
   // Draw a ticket; the block that draws the last one finishes the call.
@@ -238,82 +378,167 @@ __global__ void __launch_bounds__(kThreads, 2)
     unsigned int prev;
     asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;\n"
                  : "=r"(prev)
-                 : "l"(ticket)
+                 : "l"(a.ticket)
                  : "memory");
     last = prev == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
 
-  // Each shard's partials are summed by a group of G lanes (G a power of
-  // two, at most 32, fixed by n_shards and tiles_per_row): lane l of the
-  // group takes tiles l, l + G, ... in order, then a shuffle tree over the
-  // group.  Rounds run in lockstep over the whole block so that every lane
-  // of a warp reaches every shuffle.
+  // Each (chain, shard) row's partials are summed by a group of G lanes (G
+  // a power of two, at most 32, fixed by n_shards and tiles_per_row): lane
+  // l of the group takes tiles l, l + G, ... in order, then a shuffle tree
+  // over the group.  Rounds run in lockstep over the whole block so that
+  // every lane of a warp reaches every shuffle; kRoundsInFlight rounds at a
+  // time (P > 1), so that their loads overlap.  The rows go to `out` and, when
+  // they fit, to shared memory for the totals below.
+  const int S = a.n_shards;
   int G = 1;
-  while (G < 32 && G < tiles_per_row && G * 2 * n_shards <= kThreads) G *= 2;
+  while (G < 32 && G < a.tiles_per_row && G * 2 * S <= kThreads) G *= 2;
   const int groups = kThreads / G;
   const int g = tid / G;
   const int lane = tid % G;
-  Acc tot = {0.f, 0.f, 0.f, 0.f};
-  for (int base = 0; base < n_shards; base += groups) {
-    const int s = base + g;
-    Acc a = {0.f, 0.f, 0.f, 0.f};
-    if (s < n_shards) {
-      const float4* ps = partials + static_cast<int64_t>(s) * tiles_per_row;
-#pragma unroll 4
-      for (int c = lane; c < tiles_per_row; c += G) {
-        const float4 v = __ldcg(ps + c);
-        a.ll += v.x;
-        a.gmu += v.y;
-        a.gx += v.z;
-        a.gz += v.w;
+  const int rows = a.n_chains * S;
+  const bool rows_in_sh = rows <= kRowsShared;
+  constexpr int R = P == 1 ? 1 : kRoundsInFlight;
+  for (int base = 0; base < rows; base += R * groups) {
+    Acc r[R];
+    float ls[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int row = base + q * groups + g;
+      r[q] = Acc{0.f, 0.f, 0.f, 0.f};
+      ls[q] = ls1;
+      if (row < rows) {
+        const int c = row / S;
+        const int s = row - c * S;
+        if (P > 1) ls[q] = __ldg(a.log_sigma + c * a.stride_log_sigma);
+        const float4* ps = a.partials + static_cast<int64_t>(c) * n_tiles +
+                           static_cast<int64_t>(s) * a.tiles_per_row;
+        for (int j = lane; j < a.tiles_per_row; j += G) {
+          const float4 v = __ldcg(ps + j);
+          r[q].ll = __fadd_rn(r[q].ll, v.x);
+          r[q].gmu = __fadd_rn(r[q].gmu, v.y);
+          r[q].gx = __fadd_rn(r[q].gx, v.z);
+          r[q].gz = __fadd_rn(r[q].gz, v.w);
+        }
       }
     }
-    for (int o = G / 2; o > 0; o >>= 1) {
-      a.ll += __shfl_down_sync(0xffffffffu, a.ll, o, G);
-      a.gmu += __shfl_down_sync(0xffffffffu, a.gmu, o, G);
-      a.gx += __shfl_down_sync(0xffffffffu, a.gx, o, G);
-      a.gz += __shfl_down_sync(0xffffffffu, a.gz, o, G);
-    }
-    if (lane == 0 && s < n_shards) {
-      const float4 r = make_float4(a.ll, a.gmu * inv_s2, a.gx * inv_s2, a.gz);
-      out[s] = r;
-      tot.ll += r.x;
-      tot.gmu += r.y;
-      tot.gx += r.z;
-      tot.gz += r.w;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (base + q * groups >= rows) break;  // the same for every thread
+      for (int o = G / 2; o > 0; o >>= 1) {
+        r[q].ll = __fadd_rn(r[q].ll, __shfl_down_sync(0xffffffffu, r[q].ll, o, G));
+        r[q].gmu = __fadd_rn(r[q].gmu, __shfl_down_sync(0xffffffffu, r[q].gmu, o, G));
+        r[q].gx = __fadd_rn(r[q].gx, __shfl_down_sync(0xffffffffu, r[q].gx, o, G));
+        r[q].gz = __fadd_rn(r[q].gz, __shfl_down_sync(0xffffffffu, r[q].gz, o, G));
+      }
+      const int row = base + q * groups + g;
+      if (lane == 0 && row < rows) {
+        const int c = row / S;
+        const int s = row - c * S;
+        const float inv_s2 = P == 1 ? inv_s2_1 : inv_sigma2(ls[q]);
+        const float4 v = make_float4(r[q].ll, __fmul_rn(r[q].gmu, inv_s2),
+                                     __fmul_rn(r[q].gx, inv_s2), r[q].gz);
+        a.out[static_cast<int64_t>(c) * (S + 1) + s] = v;
+        if (rows_in_sh) rows_sh[row] = v;
+      }
     }
   }
-  // The totals: each group leader's running sum over its shards, then the
-  // fixed block tree.  The other lanes add zeros, which is exact.
-  const Acc t = block_sum(tot, sh[i & 1]);
-  if (tid == 0) {
-    out[n_shards] = make_float4(t.ll, t.gmu, t.gx, t.gz);
-    *ticket = 0u;
+  __syncthreads();  // the rows, written by this block, are visible to it
+
+  // Each chain's totals over its S rows, in an order fixed by S alone.
+  if (S <= 32) {
+    // A group of H lanes (H the power of two >= S) per chain, lane l
+    // holding row l, then a shuffle tree over the group.
+    int H = 1;
+    while (H < S) H *= 2;
+    const int per_round = kThreads / H;
+    const int h = tid / H;
+    const int hl = tid % H;
+    for (int base = 0; base < a.n_chains; base += per_round) {
+      const int c = base + h;
+      Acc r = {0.f, 0.f, 0.f, 0.f};
+      if (c < a.n_chains && hl < S) {
+        const float4 v = rows_in_sh ? rows_sh[c * S + hl]
+                                    : a.out[static_cast<int64_t>(c) * (S + 1) + hl];
+        r = Acc{v.x, v.y, v.z, v.w};
+      }
+      for (int o = H / 2; o > 0; o >>= 1) {
+        r.ll = __fadd_rn(r.ll, __shfl_down_sync(0xffffffffu, r.ll, o, H));
+        r.gmu = __fadd_rn(r.gmu, __shfl_down_sync(0xffffffffu, r.gmu, o, H));
+        r.gx = __fadd_rn(r.gx, __shfl_down_sync(0xffffffffu, r.gx, o, H));
+        r.gz = __fadd_rn(r.gz, __shfl_down_sync(0xffffffffu, r.gz, o, H));
+      }
+      if (hl == 0 && c < a.n_chains)
+        a.out[static_cast<int64_t>(c) * (S + 1) + S] =
+            make_float4(r.ll, r.gmu, r.gx, r.gz);
+    }
+  } else {
+    // The whole block per chain: thread l sums rows l, l + kThreads, ...
+    // in order, then the fixed block tree.
+    for (int c = 0; c < a.n_chains; ++c, ++i) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      const float4* row = a.out + static_cast<int64_t>(c) * (S + 1);
+      for (int s = tid; s < S; s += kThreads) {
+        const float4 u = row[s];
+        v[0] = __fadd_rn(v[0], u.x);
+        v[1] = __fadd_rn(v[1], u.y);
+        v[2] = __fadd_rn(v[2], u.z);
+        v[3] = __fadd_rn(v[3], u.w);
+      }
+      block_sum<4>(v, sh[i & 1]);
+      if (tid == 0)
+        a.out[static_cast<int64_t>(c) * (S + 1) + S] =
+            make_float4(v[0], v[1], v[2], v[3]);
+    }
   }
+  if (tid == 0) *a.ticket = 0u;
 }
 
-int g_blocks[kMaxDevices];  // persistent grid per device; 0 = not yet known
+int g_blocks[2][kMaxDevices];  // persistent grid per kernel and device
 
-// Blocks of the persistent grid on the current device: the blocks per SM
-// that the occupancy calculator allows at this kernel's registers, times
-// the SM count.  Returns a negative CUDA error on failure.
+// Blocks of the persistent grid of the P-chain kernel on the current
+// device: the blocks per SM that the occupancy calculator allows at its
+// registers, times the SM count.  Returns a negative CUDA error on failure.
+template <int P>
 int persistent_blocks() {
+  const int k = P == 1 ? 0 : 1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  if (dev < kMaxDevices && g_blocks[dev] > 0) return g_blocks[dev];
+  if (dev < kMaxDevices && g_blocks[k][dev] > 0) return g_blocks[k][dev];
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, linreg_reductions_kernel, kThreads, 0);
+      &per_sm, linreg_reductions_kernel<P>, kThreads, 0);
   if (err != cudaSuccess) return -static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
   const int blocks = per_sm * sms;
-  if (dev < kMaxDevices) g_blocks[dev] = blocks;
+  if (dev < kMaxDevices) g_blocks[k][dev] = blocks;
   return blocks;
+}
+
+template <int P>
+int launch(Args a, int max_blocks, cudaStream_t stream) {
+  const int blocks = persistent_blocks<P>();
+  if (blocks < 0) return -blocks;
+  const int n_tiles = a.n_shards * a.tiles_per_row;
+  // Chain blocks: as many as keep the grid busy when there are fewer
+  // tiles than blocks, each a whole number of passes.
+  const int passes = (a.n_chains + P - 1) / P;
+  int n_cb = blocks / n_tiles;
+  if (n_cb < 1) n_cb = 1;
+  if (n_cb > passes) n_cb = passes;
+  const int passes_per_block = (passes + n_cb - 1) / n_cb;
+  a.chain_block = passes_per_block * P;
+  a.n_chain_blocks = (a.n_chains + a.chain_block - 1) / a.chain_block;
+  const int n_items = n_tiles * a.n_chain_blocks;
+  int grid = n_items < blocks ? n_items : blocks;
+  if (max_blocks > 0 && max_blocks < grid) grid = max_blocks;
+  linreg_reductions_kernel<P><<<grid, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -321,40 +546,62 @@ int persistent_blocks() {
 extern "C" {
 
 // Observations per tile: the wrapper sizes the partials scratch as
-// (n_shards * ceil(n_obs / tile), 4) floats.
+// (n_chains * n_shards * ceil(n_obs / tile), 4) floats.
 int linreg_tile() { return kTile; }
 
-// Blocks of the persistent grid on the current device (negative: a CUDA
-// error code, negated).
-int linreg_persistent_blocks() { return persistent_blocks(); }
+// Blocks of the persistent grid of the one-chain kernel, and of the
+// kernel for more chains, on the current device (negative: a CUDA error
+// code, negated).
+int linreg_persistent_blocks() { return persistent_blocks<1>(); }
+int linreg_persistent_blocks_batched() {
+  return persistent_blocks<kChainsPerPass>();
+}
 
 // Enqueues the kernel on `stream`, once; returns cudaGetLastError() (0
-// when the launch was accepted).  All pointers are device pointers:
-// intercept, slope and log_sigma to one float32 each; offsets (S,);
-// x, y, m (S, N) contiguous float32; partials (S * tiles_per_row, 4) and
-// out (S + 1, 4) float32, 16-byte aligned; ticket one unsigned int that is
-// 0 and that no call on another stream uses at the same time.  Row S of
-// out receives the totals.  max_blocks > 0 caps the grid (a check that
-// the result's bits do not depend on the grid uses it); 0 launches the
-// persistent grid.
-int linreg_reductions_launch(const float* intercept, const float* slope,
-                             const float* log_sigma, const float* offsets,
+// when the launch was accepted).  All pointers are device pointers.
+// Chain c's intercept, slope and log_sigma are at intercept[c *
+// stride_intercept] and so on, its offsets at offsets[c * stride_offsets
+// + s] (a stride of 0 shares one value among the chains); x, y, m are
+// (S, N) contiguous float32, shared; partials (C * S * tiles_per_row, 4)
+// and out (C, S + 1, 4) float32, 16-byte aligned; ticket one unsigned int
+// that is 0 and that no call on another stream uses at the same time.
+// Row S of each chain's block of out receives its totals.  max_blocks > 0
+// caps the grid (a check that the result's bits do not depend on the grid
+// uses it); 0 launches the persistent grid.
+int linreg_reductions_launch(const float* intercept, long long stride_intercept,
+                             const float* slope, long long stride_slope,
+                             const float* log_sigma, long long stride_log_sigma,
+                             const float* offsets, long long stride_offsets,
                              const float* x, const float* y, const float* m,
                              float* partials, float* out,
-                             unsigned int* ticket, int n_shards,
+                             unsigned int* ticket, int n_chains, int n_shards,
                              long long n_obs, int tiles_per_row,
                              int max_blocks, void* stream) {
-  const int blocks = persistent_blocks();
-  if (blocks < 0) return -blocks;
-  const int n_tiles = n_shards * tiles_per_row;
-  int grid = n_tiles < blocks ? n_tiles : blocks;
-  if (max_blocks > 0 && max_blocks < grid) grid = max_blocks;
-  linreg_reductions_kernel<<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      intercept, slope, log_sigma, offsets, x, y, m,
-      reinterpret_cast<float4*>(partials), reinterpret_cast<float4*>(out),
-      ticket, n_shards, n_obs, tiles_per_row);
-  return static_cast<int>(cudaGetLastError());
+  Args a;
+  a.intercept = intercept;
+  a.slope = slope;
+  a.log_sigma = log_sigma;
+  a.offsets = offsets;
+  a.stride_intercept = stride_intercept;
+  a.stride_slope = stride_slope;
+  a.stride_log_sigma = stride_log_sigma;
+  a.stride_offsets = stride_offsets;
+  a.x = x;
+  a.y = y;
+  a.m = m;
+  a.partials = reinterpret_cast<float4*>(partials);
+  a.out = reinterpret_cast<float4*>(out);
+  a.ticket = ticket;
+  a.n_chains = n_chains;
+  a.n_shards = n_shards;
+  a.n_obs = n_obs;
+  a.tiles_per_row = tiles_per_row;
+  a.chain_block = 0;
+  a.n_chain_blocks = 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // The one-chain kernel (P = 1) reads chain 0's parameters only.
+  return n_chains == 1 ? launch<1>(a, max_blocks, st)
+                       : launch<kChainsPerPass>(a, max_blocks, st);
 }
 
 const char* linreg_error_string(int err) {

@@ -22,7 +22,7 @@ import torch
 from ..fanout_exec import MemberExecutorPool
 from ..signatures import Array, ArraysSpec, ShapeDtypeStruct
 from .blackbox import _device_of, from_host, to_numpy
-from .ops import refuse_second_order
+from .ops import refuse_second_order, vmap_sequential
 
 
 def fuse(fns: Sequence[Callable]) -> Callable:
@@ -88,10 +88,11 @@ def parallel_host_call(
 
 class _FanoutLogpGrad(torch.autograd.Function):
     """Node logps and grads from one fan-out; the backward applies each
-    node's forward-supplied grads scaled by its logp's cotangent."""
+    node's forward-supplied grads scaled by its logp's cotangent.  Under
+    ``torch.func.vmap`` it fans out once per chain, in turn."""
 
     @staticmethod
-    def forward(ctx, op, *flat_inputs):
+    def forward(op, *flat_inputs):
         args_per_child, i = [], 0
         for k in op._arities:
             args_per_child.append(tuple(x.detach() for x in flat_inputs[i : i + k]))
@@ -99,10 +100,13 @@ class _FanoutLogpGrad(torch.autograd.Function):
         outs = op._fanout(*args_per_child)
         logps = [o[0] for o in outs]
         grads = [g for o in outs for g in o[1:]]
-        ctx.set_materialize_grads(False)
-        ctx.arities = op._arities
-        ctx.save_for_backward(*grads)
         return (*logps, *grads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.set_materialize_grads(False)
+        ctx.arities = inputs[0]._arities
+        ctx.save_for_backward(*output[len(ctx.arities) :])
 
     @staticmethod
     def backward(ctx, *cotangents):
@@ -116,6 +120,10 @@ class _FanoutLogpGrad(torch.autograd.Function):
                 flat.append(None if g_logp is None else g_logp.to(g.dtype) * g)
             i += k
         return (None, *flat)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_sequential(_FanoutLogpGrad, info, in_dims, *args)
 
 
 class ParallelLogpGrad:

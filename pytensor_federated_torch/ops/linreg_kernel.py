@@ -9,9 +9,13 @@ and ``linreg_logp_grad_fn``).  One pass over each shard's masked
     gx_i        = sum_n m r x / sigma^2        (d ll / d slope, per shard)
     gz_i        = sum_n m (z^2 - 1)            (d ll / d log_sigma, per shard)
 
-with ``r = y - mu``, ``z = r / sigma``.  On CUDA tensors
+with ``r = y - mu``, ``z = r / sigma``.
+
+The parameters may carry a leading chain axis: ``C`` parameter sets
+against the same data, as ``jax.vmap`` batches the JAX package's
+``pallas_call`` into one more grid axis.  On CUDA tensors
 :func:`linreg_reductions` launches the hand-written Hopper kernel in
-``csrc/linreg_reductions.cu``; on CPU tensors it runs
+``csrc/linreg_reductions.cu`` once for all chains; on CPU tensors it runs
 :func:`linreg_reductions_ref`, the plain PyTorch version that the kernel
 is held against.  There is no other path: any other device raises.
 """
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Any, Callable, Dict, Sequence, Tuple, Union
 
 import torch
@@ -28,11 +33,31 @@ from ..utils import LOG_2PI, value_and_grad
 from . import _build
 
 Reductions = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-#: ``[intercept, slope, log_sigma]``: one ``(3,)`` tensor, or three 0-d
-#: tensors of one dtype on one device.
+#: ``[intercept, slope, log_sigma]``: one ``(..., 3)`` tensor, or three
+#: tensors of one shape (``()`` for one chain, ``(C,)`` for C chains), of
+#: one dtype on one device.
 Scalars = Union[torch.Tensor, Sequence[torch.Tensor]]
 
-_MAX_TILES = 1 << 30  # the kernel indexes tiles with 32-bit ints
+_MAX_TILES = 1 << 30  # the kernel indexes (chain, tile) pairs with 32-bit ints
+
+
+def _split_scalars(scalars: Scalars) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if torch.is_tensor(scalars):
+        if scalars.ndim == 0 or scalars.shape[-1] != 3:
+            raise ValueError(
+                f"scalars must have shape (3,) or (C, 3), got {tuple(scalars.shape)}"
+            )
+        return tuple(scalars.unbind(-1))
+    parts = tuple(scalars)
+    if len(parts) != 3 or not all(torch.is_tensor(p) for p in parts):
+        raise ValueError("scalars must be a (..., 3) tensor or three tensors")
+    if len({p.shape for p in parts}) != 1:
+        raise ValueError(f"the three scalars differ in shape: {[tuple(p.shape) for p in parts]}")
+    if len({p.dtype for p in parts}) != 1:
+        raise TypeError(f"the three scalars differ in dtype: {[p.dtype for p in parts]}")
+    if len({p.device for p in parts}) != 1:
+        raise ValueError(f"the three scalars lie on several devices: {[str(p.device) for p in parts]}")
+    return parts
 
 
 def linreg_reductions_ref(
@@ -42,51 +67,39 @@ def linreg_reductions_ref(
     y: torch.Tensor,
     mask: torch.Tensor,
 ) -> Reductions:
-    """Plain PyTorch version of the kernel, in the inputs' dtype."""
-    intercept, slope, log_sigma = scalars
+    """Plain PyTorch version of the kernel, in the inputs' dtype.
+
+    Scalars of batch shape ``B`` and offsets ``B + (S,)`` give four
+    ``B + (S,)`` tensors."""
+    intercept, slope, log_sigma = (t[..., None, None] for t in _split_scalars(scalars))
     inv_s2 = torch.exp(-2.0 * log_sigma)
-    mu = (intercept + offsets[:, None]) + slope * x
+    mu = (intercept + offsets[..., :, None]) + slope * x
     r = y - mu
     z2 = r * r * inv_s2
-    ll = torch.sum(mask * (-0.5 * z2 - log_sigma - 0.5 * LOG_2PI), dim=1)
-    gmu = torch.sum(mask * r, dim=1) * inv_s2
-    gx = torch.sum(mask * r * x, dim=1) * inv_s2
-    gz = torch.sum(mask * (z2 - 1.0), dim=1)
+    ll = torch.sum(mask * (-0.5 * z2 - log_sigma - 0.5 * LOG_2PI), dim=-1)
+    gmu = torch.sum(mask * r, dim=-1) * inv_s2[..., 0]
+    gx = torch.sum(mask * r * x, dim=-1) * inv_s2[..., 0]
+    gz = torch.sum(mask * (z2 - 1.0), dim=-1)
     return ll, gmu, gx, gz
 
 
-def _split_scalars(scalars: Scalars) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    if torch.is_tensor(scalars):
-        if scalars.shape != (3,):
-            raise ValueError(f"scalars must have shape (3,), got {tuple(scalars.shape)}")
-        return tuple(scalars.unbind())
-    parts = tuple(scalars)
-    if len(parts) != 3 or not all(torch.is_tensor(p) and p.ndim == 0 for p in parts):
-        raise ValueError("scalars must be a (3,) tensor or three 0-d tensors")
-    if len({p.dtype for p in parts}) != 1:
-        raise TypeError(f"the three scalars differ in dtype: {[p.dtype for p in parts]}")
-    if len({p.device for p in parts}) != 1:
-        raise ValueError(f"the three scalars lie on several devices: {[str(p.device) for p in parts]}")
-    return parts
-
-
-def _check_shapes(offsets, x, y, mask) -> None:
+def _check_shapes(batch, offsets, x, y, mask) -> None:
     if x.ndim != 2 or y.shape != x.shape or mask.shape != x.shape:
         raise ValueError(
             "x, y and mask must share one (S, N) shape, got "
             f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(mask.shape)}"
         )
-    if offsets.shape != (x.shape[0],):
-        raise ValueError(
-            f"offsets must have shape ({x.shape[0]},), got {tuple(offsets.shape)}"
-        )
+    want = tuple(batch) + (x.shape[0],)
+    if tuple(offsets.shape) != want:
+        raise ValueError(f"offsets must have shape {want}, got {tuple(offsets.shape)}")
 
 
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("linreg_reductions")
     fn = lib.linreg_reductions_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 6 + [
+        ctypes.c_int,
         ctypes.c_int,
         ctypes.c_longlong,
         ctypes.c_int,
@@ -96,6 +109,7 @@ def _kernel_lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.linreg_tile.restype = ctypes.c_int
     lib.linreg_persistent_blocks.restype = ctypes.c_int
+    lib.linreg_persistent_blocks_batched.restype = ctypes.c_int
     lib.linreg_error_string.argtypes = [ctypes.c_int]
     lib.linreg_error_string.restype = ctypes.c_char_p
     return lib
@@ -117,23 +131,35 @@ def _launch(
     *,
     max_blocks: int = 0,
 ) -> torch.Tensor:
-    """One launch of the kernel; returns ``(S + 1, 4)``: the per-shard
-    ``(ll, gmu, gx, gz)`` rows, then the totals.  ``max_blocks > 0``
-    caps the grid, for the check that the bits do not depend on it."""
-    args = (*scalars, offsets, x, y, mask)
-    for t in args:
+    """One launch of the kernel for every chain; returns ``B + (S + 1,
+    4)``: each chain's per-shard ``(ll, gmu, gx, gz)`` rows, then its
+    totals.  ``scalars`` are three tensors of batch shape ``B`` (``()``
+    or ``(C,)``; more axes are flattened), ``offsets`` ``B + (S,)``.
+    ``max_blocks > 0`` caps the grid, for the check that the bits do not
+    depend on it."""
+    batch = tuple(scalars[0].shape)
+    if len(batch) > 1:
+        scalars = [t.reshape(-1) for t in scalars]
+        offsets = offsets.reshape(-1, offsets.shape[-1])
+    C = math.prod(batch)
+    for t in (*scalars, offsets, x, y, mask):
         if t.dtype != torch.float32:
             raise TypeError(f"the kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous tensors")
+    if not all(t.is_contiguous() for t in (x, y, mask)) or offsets.stride(-1) != 1:
+        raise ValueError("the kernel takes contiguous x, y, mask and offsets rows")
     S, N = x.shape
     lib = _kernel_lib()
     tiles_per_row = max(1, -(-N // lib.linreg_tile()))
-    if not 0 < S * tiles_per_row <= _MAX_TILES:
-        raise ValueError(f"the kernel takes 1..{_MAX_TILES} tiles, got {S * tiles_per_row}")
+    if not 0 < C * S * tiles_per_row <= _MAX_TILES:
+        raise ValueError(
+            f"the kernel takes 1..{_MAX_TILES} (chain, tile) pairs, got {C * S * tiles_per_row}"
+        )
     device = x.device
-    partials = torch.empty((S * tiles_per_row, 4), dtype=torch.float32, device=device)
-    out = torch.empty((S + 1, 4), dtype=torch.float32, device=device)
+    partials = torch.empty((C * S * tiles_per_row, 4), dtype=torch.float32, device=device)
+    out = torch.empty((C, S + 1, 4), dtype=torch.float32, device=device)
+    strided = []
+    for t, event_ndim in zip((*scalars, offsets), (0, 0, 0, 1)):
+        strided += [t.data_ptr(), t.stride(0) if C > 1 and t.ndim > event_ndim else 0]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         ticket = _tickets.get((device.index, stream))
@@ -141,7 +167,9 @@ def _launch(
             ticket = torch.zeros((), dtype=torch.int32, device=device)
             _tickets[(device.index, stream)] = ticket
         err = lib.linreg_reductions_launch(
-            *(t.data_ptr() for t in (*args, partials, out, ticket)),
+            *strided,
+            *(t.data_ptr() for t in (x, y, mask, partials, out, ticket)),
+            C,
             S,
             N,
             tiles_per_row,
@@ -153,7 +181,7 @@ def _launch(
             f"linreg_reductions launch failed: {lib.linreg_error_string(err).decode()}"
         )
     linreg_reductions.launches += 1
-    return out
+    return out.reshape(batch + (S + 1, 4))
 
 
 def _reduce(
@@ -163,18 +191,18 @@ def _reduce(
     y: torch.Tensor,
     mask: torch.Tensor,
 ) -> torch.Tensor:
-    """``(S + 1, 4)``: the per-shard ``(ll, gmu, gx, gz)`` rows, then
-    their totals over shards.  One kernel launch on CUDA; on the CPU the
-    plain version, its rows summed."""
+    """``B + (S + 1, 4)``: each chain's per-shard ``(ll, gmu, gx, gz)``
+    rows, then their totals over shards.  One kernel launch on CUDA for
+    all chains; on the CPU the plain version, its rows summed."""
     scalars = _split_scalars(scalars)
-    _check_shapes(offsets, x, y, mask)
+    _check_shapes(scalars[0].shape, offsets, x, y, mask)
     devices = {t.device for t in (*scalars, offsets, x, y, mask)}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
     device = devices.pop()
     if device.type == "cpu":
-        rows = torch.stack(linreg_reductions_ref(scalars, offsets, x, y, mask), dim=1)
-        return torch.cat([rows, rows.sum(dim=0, keepdim=True)])
+        rows = torch.stack(linreg_reductions_ref(scalars, offsets, x, y, mask), dim=-1)
+        return torch.cat([rows, rows.sum(dim=-2, keepdim=True)], dim=-2)
     if device.type != "cuda":
         raise ValueError(f"linreg_reductions runs on cuda or cpu, not {device}")
     return _launch(scalars, offsets, x, y, mask)
@@ -187,12 +215,12 @@ def linreg_reductions_and_totals(
     y: torch.Tensor,
     mask: torch.Tensor,
 ) -> Tuple[Reductions, torch.Tensor]:
-    """:func:`linreg_reductions` and its four totals over shards,
-    ``(sum ll, sum gmu, sum gx, sum gz)``, from one call (on CUDA, one
-    kernel launch)."""
+    """:func:`linreg_reductions` and each chain's four totals over
+    shards, ``(sum ll, sum gmu, sum gx, sum gz)`` (``B + (4,)``), from one
+    call (on CUDA, one kernel launch)."""
     out = _reduce(scalars, offsets, x, y, mask)
-    S = out.shape[0] - 1
-    return (out[:S, 0], out[:S, 1], out[:S, 2], out[:S, 3]), out[S]
+    S = out.shape[-2] - 1
+    return (out[..., :S, 0], out[..., :S, 1], out[..., :S, 2], out[..., :S, 3]), out[..., S, :]
 
 
 def linreg_reductions(
@@ -206,46 +234,85 @@ def linreg_reductions(
 
     ``scalars = [intercept, slope, log_sigma]``, a ``(3,)`` tensor or
     three 0-d tensors; ``offsets``: ``(S,)``; ``x, y, mask``: ``(S, N)``.
-    Returns four ``(S,)`` vectors.  On CUDA every input must be
-    contiguous float32 on one device; the kernel masks the ragged
-    observation edge itself, so nothing is padded.
-    ``linreg_reductions.launches`` counts kernel launches.
+    Returns four ``(S,)`` vectors.  With a chain axis, scalars ``(C, 3)``
+    (or three ``(C,)`` tensors) and offsets ``(C, S)`` against the same
+    data give four ``(C, S)`` tensors from one launch.  On CUDA every
+    input must be float32 on one device, the data and the offsets' rows
+    contiguous; the kernel masks the ragged observation edge itself, so
+    nothing is padded.  ``linreg_reductions.launches`` counts kernel
+    launches.
     """
     return linreg_reductions_and_totals(scalars, offsets, x, y, mask)[0]
 
 
 linreg_reductions.launches = 0
 
-
-class _DataLogp(torch.autograd.Function):
+class _LinregLogp(torch.autograd.Function):
     """``Σ_i ll_i`` with the gradient the forward pass already produced.
 
-    The backward only scales the saved reductions by the incoming
-    cotangent: value and gradient cost ONE data pass together.  On CUDA
-    the forward is the kernel's one launch: the parameters enter by
-    pointer and the kernel writes the totals.
+    Returns ``(logp, totals, gmu)``; the last two are the saved
+    reductions, not differentiable (:class:`_DataLogp` gives the first).  The backward only scales them by the
+    incoming cotangent: value and gradient cost ONE data pass together.
+    On CUDA the forward is the kernel's one launch: the parameters enter
+    by pointer and the kernel writes the totals.  The parameters may
+    carry leading chain axes, and under ``torch.func.vmap`` the
+    :meth:`vmap` rule moves the vmapped axis in front and calls the
+    batched launch once for all chains: it never loops over chains.
     """
 
     @staticmethod
-    def forward(ctx, intercept, slope, log_sigma, offsets, x, y, mask):
+    def forward(intercept, slope, log_sigma, offsets, x, y, mask):
         out = _reduce((intercept, slope, log_sigma), offsets, x, y, mask)
-        S = out.shape[0] - 1
-        ctx.save_for_backward(out[S], out[:S, 1])  # the totals, per-shard gmu
-        return out[S, 0]
+        S = out.shape[-2] - 1
+        return out[..., S, 0], out[..., S, :], out[..., :S, 1]
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        _, totals, goff = output
+        ctx.mark_non_differentiable(totals, goff)
+        ctx.save_for_backward(totals, goff)
+
+    @staticmethod
+    def backward(ctx, g, _g_totals, _g_goff):
         # No second derivative through the kernel, as in the JAX package:
         # under create_graph=True grad mode is on here, so refuse.  (torch's
         # @once_differentiable refuses only when the cotangent itself
         # requires grad; a Hessian of prior + data_logp would otherwise
-        # silently lose this term.)
+        # silently lose this term.)  A torch.func grad transform always
+        # builds that graph, so it is refused too.
         if torch.is_grad_enabled():
             raise RuntimeError(
                 "second-order autodiff through the linreg kernel is unsupported"
             )
         totals, goff = ctx.saved_tensors
-        return g * totals[1], g * totals[2], g * totals[3], g * goff, None, None, None
+        return (
+            g * totals[..., 1], g * totals[..., 2], g * totals[..., 3], g[..., None] * goff,
+            None, None, None,
+        )
+
+    @staticmethod
+    def vmap(info, in_dims, intercept, slope, log_sigma, offsets, x, y, mask):
+        if any(d is not None for d in in_dims[4:]):
+            raise ValueError(
+                "the linreg kernel shares x, y and mask among chains; "
+                "vmap over the parameters only"
+            )
+
+        def front(t, d):
+            if d is None:
+                return t.expand(info.batch_size, *t.shape)
+            return t.movedim(d, 0)
+
+        params = [front(t, d) for t, d in zip((intercept, slope, log_sigma, offsets), in_dims)]
+        return _LinregLogp.apply(*params, x, y, mask), (0, 0, 0)
+
+
+class _DataLogp:
+    """The differentiable scalar ``Σ_i ll_i`` of :class:`_LinregLogp`."""
+
+    @staticmethod
+    def apply(intercept, slope, log_sigma, offsets, x, y, mask):
+        return _LinregLogp.apply(intercept, slope, log_sigma, offsets, x, y, mask)[0]
 
 
 def linreg_logp_grad_fn(
@@ -256,8 +323,10 @@ def linreg_logp_grad_fn(
     ``params`` matches :class:`..models.linear.FederatedLinearRegression`:
     ``{intercept, slope, log_sigma, offsets}``.  The returned function
     carries ``.data_logp(params)``, a differentiable scalar that composes
-    with other terms (a prior) under ``torch.autograd``.  Second-order
-    autodiff through the kernel raises.  The data stay on their device.
+    with other terms (a prior) under ``torch.autograd``; under
+    ``torch.func.vmap`` over chains it is one kernel launch for all of
+    them.  Second-order autodiff through the kernel raises.  The data
+    stay on their device.
     """
     x, y, mask = (t.to(torch.float32).contiguous() for t in (x, y, mask))
 

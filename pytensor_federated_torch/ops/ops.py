@@ -68,12 +68,26 @@ class LogpOp:
         return check_scalar(torch.as_tensor(self.logp_fn(*args)), "logp")
 
 
+def vmap_sequential(function, info, in_dims, *args):
+    """The ``vmap`` rule of a host-callback autograd Function: the host
+    is called once per chain, in turn, and the outputs are stacked — the
+    JAX package's ``vmap_method="sequential"``.  Non-tensor arguments
+    (``in_dims`` None) are passed to every call as they are."""
+    per_chain = []
+    for c in range(info.batch_size):
+        chain_args = [a if d is None else a.select(d, c) for a, d in zip(args, in_dims)]
+        per_chain.append(function.apply(*chain_args))
+    outputs = tuple(torch.stack(o) for o in zip(*per_chain))
+    return outputs, (0,) * len(outputs)
+
+
 class _LogpGrad(torch.autograd.Function):
     """``(logp, *grads)`` from one call of ``logp_grad_fn``; the backward
-    scales the saved grads by the cotangent of ``logp``."""
+    scales the saved grads by the cotangent of ``logp``.  Under
+    ``torch.func.vmap`` the host is called once per chain, in turn."""
 
     @staticmethod
-    def forward(ctx, logp_grad_fn, *inputs):
+    def forward(logp_grad_fn, *inputs):
         logp, grads = logp_grad_fn(*(x.detach() for x in inputs))
         logp = check_scalar(torch.as_tensor(logp), "logp")
         grads = tuple(torch.as_tensor(g) for g in grads)
@@ -82,9 +96,12 @@ class _LogpGrad(torch.autograd.Function):
                 f"logp_grad_fn returned {len(grads)} grads for "
                 f"{len(inputs)} inputs"
             )
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(*grads)
         return (logp, *grads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*output[1:])
 
     @staticmethod
     def backward(ctx, g_logp, *g_grads):
@@ -93,6 +110,10 @@ class _LogpGrad(torch.autograd.Function):
         if g_logp is None:
             return (None, *(torch.zeros_like(g) for g in grads))
         return (None, *(g_logp.to(g.dtype) * g for g in grads))
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_sequential(_LogpGrad, info, in_dims, *args)
 
 
 class LogpGradOp:

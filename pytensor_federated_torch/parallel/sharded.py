@@ -69,7 +69,13 @@ class FederatedLogp:
     ``remat=True`` runs the shard map under ``torch.utils.checkpoint``:
     the backward pass recomputes the shards' intermediate tensors instead
     of holding them in device memory, which trades arithmetic for memory
-    when shards are large.
+    when shards are large.  Inside ``torch.func.vmap`` (a batch of
+    chains) the checkpoint cannot recompute the vmapped function, so
+    there the shard map keeps its intermediates: the same values and
+    gradients, without the memory saving.
+
+    Every method works under an outer ``torch.func.vmap`` over chains
+    (the shard map is then a vmap nested in it).
     """
 
     def __init__(self, per_shard_logp: PerShardLogpFn, data: Any, *, remat: bool = False):
@@ -82,7 +88,7 @@ class FederatedLogp:
         def run(params, data):
             return torch.func.vmap(lambda d: self.per_shard_logp(params, d))(data)
 
-        if self.remat:
+        if self.remat and not torch._C._are_functorch_transforms_active():
             return torch.utils.checkpoint.checkpoint(run, params, data, use_reentrant=False)
         return run(params, data)
 

@@ -1,6 +1,8 @@
 """Samplers on flat parameter vectors: NUTS, HMC and Metropolis, warmup,
-diagnostics, and the MAP point."""
+ChEES-HMC, diagnostics, and the MAP point.  Every chain of a run steps
+in lockstep, as one batch."""
 
+from .chees import chees_sample
 from .convergence import effective_sample_size, hdi, split_rhat, summary, tail_ess
 from .hmc import (
     HMCInfo,
@@ -13,9 +15,16 @@ from .hmc import (
     leapfrog,
     sample_momentum,
 )
-from .mcmc import SampleResult, find_map, make_flat_logp_and_grad, make_kernel_step, sample
+from .mcmc import (
+    SampleResult,
+    find_map,
+    make_batch_logp_and_grad,
+    make_flat_logp_and_grad,
+    make_kernel_step,
+    sample,
+)
 from .metropolis import MetropolisState, metropolis_init, metropolis_step
-from .nuts import NUTSInfo, nuts_step
+from .nuts import NUTSDraws, NUTSInfo, draw_nuts, nuts_step
 from .util import (
     AdaptSchedule,
     DualAveragingState,
@@ -24,6 +33,7 @@ from .util import (
     da_update,
     flatten_logp,
     ravel,
+    ravel_batch,
     welford_covariance,
     welford_init,
     welford_update,

@@ -6,6 +6,15 @@ device of the position vector; randomness comes from an explicit
 ``find_reasonable_step_size`` also take their standard-normal and
 uniform draws as arguments, so that a step can be held against the JAX
 one on the same draws.
+
+Every function takes a leading chain axis, as ``jax.vmap`` of the JAX
+function does: positions ``(C, d)``, log densities ``(C,)``, step sizes
+``(C,)`` or one shared, inverse masses ``(C, d)``, ``(C, d, d)`` or one
+shared diagonal ``(d,)``.  The value+grad function then takes ``(C, d)``
+and returns ``((C,), (C, d))``: one evaluation for every chain.  Without
+the chain axis (``(d,)`` positions) they are the JAX functions as they
+are.  An inverse mass is dense when it has one axis more than the
+positions.
 """
 
 from __future__ import annotations
@@ -23,13 +32,23 @@ class IntegratorState(NamedTuple):
     grad: torch.Tensor
 
 
+def is_dense(inv_mass: torch.Tensor, r: torch.Tensor) -> bool:
+    """A full ``M⁻¹`` (one axis more than ``r``), not its diagonal."""
+    return inv_mass.ndim == r.ndim + 1
+
+
 def mass_velocity(inv_mass: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """``v = M⁻¹ r``.  ``inv_mass`` is either the diagonal of M⁻¹ (a
-    ``(d,)`` vector) or the full M⁻¹ (a ``(d, d)`` matrix).  ``r`` may
-    carry leading batch axes."""
-    if inv_mass.ndim == 2:
-        return r @ inv_mass.T
+    """``v = M⁻¹ r``.  ``inv_mass`` is either the diagonal of M⁻¹ (shaped
+    like ``r``, or shared) or the full M⁻¹ (``r.shape + (d,)``)."""
+    if is_dense(inv_mass, r):
+        return (inv_mass @ r[..., None])[..., 0]
     return inv_mass * r
+
+
+def _col(step_size, x: torch.Tensor) -> torch.Tensor:
+    """A step size (a number, ``()`` or ``(C,)``) as a column that
+    broadcasts against positions ``(..., d)``."""
+    return torch.as_tensor(step_size, dtype=x.dtype, device=x.device)[..., None]
 
 
 def leapfrog(
@@ -39,27 +58,28 @@ def leapfrog(
     inv_mass: torch.Tensor,
 ) -> IntegratorState:
     """One leapfrog step (diagonal or dense mass matrix)."""
-    r_half = state.r + 0.5 * step_size * state.grad
-    if inv_mass.ndim == 2:
-        x_new = state.x + step_size * (inv_mass @ r_half)
+    eps = _col(step_size, state.x)
+    r_half = state.r + 0.5 * eps * state.grad
+    if is_dense(inv_mass, r_half):
+        x_new = state.x + eps * mass_velocity(inv_mass, r_half)
     else:
         # Bitwise-identical grouping to the pre-dense form:
         # (step_size * inv_mass) * r_half, NOT step_size * (inv_mass *
         # r_half) — the rounding difference flips borderline accepts.
-        x_new = state.x + step_size * inv_mass * r_half
+        x_new = state.x + eps * inv_mass * r_half
     logp_new, grad_new = logp_and_grad(x_new)
-    r_new = r_half + 0.5 * step_size * grad_new
+    r_new = r_half + 0.5 * eps * grad_new
     return IntegratorState(x_new, r_new, logp_new, grad_new)
 
 
 def kinetic_energy(r: torch.Tensor, inv_mass: torch.Tensor) -> torch.Tensor:
-    if inv_mass.ndim == 2:
-        return 0.5 * r @ (inv_mass @ r)
+    if is_dense(inv_mass, r):
+        return 0.5 * torch.sum(r * mass_velocity(inv_mass, r), dim=-1)
     # Keep the diagonal path BITWISE identical to the pre-dense form
     # (0.5 * Σ m⁻¹ r² rounds differently from 0.5 * Σ r·(m⁻¹r), which
     # is enough to flip borderline accept decisions and send seeded
     # posterior-recovery tests off their tolerance).
-    return 0.5 * torch.sum(inv_mass * r**2)
+    return 0.5 * torch.sum(inv_mass * r**2, dim=-1)
 
 
 def normal_like(generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
@@ -67,9 +87,10 @@ def normal_like(generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
     return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
 
 
-def uniform_like(generator: torch.Generator, x: torch.Tensor) -> torch.Tensor:
-    """One U(0, 1) scalar on ``x``'s device, in its dtype."""
-    return torch.rand((), generator=generator, dtype=x.dtype, device=x.device)
+def uniform_like(generator: torch.Generator, t: torch.Tensor) -> torch.Tensor:
+    """U(0, 1) draws shaped like ``t`` (one per chain for a ``(C,)`` log
+    density), on its device, in its dtype."""
+    return torch.rand(t.shape, generator=generator, dtype=t.dtype, device=t.device)
 
 
 def sample_momentum(z: torch.Tensor, inv_mass: torch.Tensor) -> torch.Tensor:
@@ -77,9 +98,9 @@ def sample_momentum(z: torch.Tensor, inv_mass: torch.Tensor) -> torch.Tensor:
 
     Dense case: with ``inv_mass = L Lᵀ`` (Cholesky), ``r = L⁻ᵀ z`` has
     covariance ``L⁻ᵀ L⁻¹ = (L Lᵀ)⁻¹ = M``."""
-    if inv_mass.ndim == 2:
+    if is_dense(inv_mass, z):
         chol = torch.linalg.cholesky(inv_mass)
-        return torch.linalg.solve_triangular(chol.T, z[:, None], upper=True)[:, 0]
+        return torch.linalg.solve_triangular(chol.mT, z[..., None], upper=True)[..., 0]
     return z / torch.sqrt(inv_mass)
 
 
@@ -101,7 +122,8 @@ def hmc_init(logp_and_grad: Callable, x0: torch.Tensor) -> HMCState:
     return HMCState(x0, logp, grad)
 
 
-def _energy_delta(energy0: torch.Tensor, end: IntegratorState, inv_mass) -> tuple:
+def energy_delta(energy0: torch.Tensor, end: IntegratorState, inv_mass) -> tuple:
+    """``(energy of end, energy0 - that)``, a NaN difference as ``-inf``."""
     energy1 = -end.logp + kinetic_energy(end.r, inv_mass)
     delta = energy0 - energy1
     return energy1, torch.where(torch.isnan(delta), -math.inf, delta)
@@ -119,14 +141,16 @@ def hmc_step(
     z: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
 ):
-    """One HMC transition with ``num_steps`` leapfrog steps.
+    """One HMC transition with ``num_steps`` leapfrog steps, every chain
+    in lockstep.
 
-    ``z`` (the momentum's standard-normal draw) and ``u`` (the accept
-    uniform) are drawn from ``generator`` unless given."""
+    ``z`` (the momenta's standard-normal draws, shaped like ``x``) and
+    ``u`` (the accept uniforms, shaped like ``logp``) are drawn from
+    ``generator`` unless given."""
     if z is None:
         z = normal_like(generator, state.x)
     if u is None:
-        u = uniform_like(generator, state.x)
+        u = uniform_like(generator, state.logp)
     r0 = sample_momentum(z, inv_mass)
     energy0 = -state.logp + kinetic_energy(r0, inv_mass)
 
@@ -134,15 +158,15 @@ def hmc_step(
     for _ in range(num_steps):
         end = leapfrog(logp_and_grad, end, step_size, inv_mass)
 
-    energy1, delta = _energy_delta(energy0, end, inv_mass)
+    energy1, delta = energy_delta(energy0, end, inv_mass)
     diverging = -delta > divergence_threshold
     accept_prob = torch.clamp(torch.exp(delta), max=1.0)
     accept = u < accept_prob
 
     new_state = HMCState(
-        x=torch.where(accept, end.x, state.x),
+        x=torch.where(accept[..., None], end.x, state.x),
         logp=torch.where(accept, end.logp, state.logp),
-        grad=torch.where(accept, end.grad, state.grad),
+        grad=torch.where(accept[..., None], end.grad, state.grad),
     )
     # Report the energy of the state the chain actually occupies, so
     # energy-marginal diagnostics (E-BFMI) are not polluted by rejected
@@ -162,10 +186,14 @@ def find_reasonable_step_size(
     max_iters: int = 60,
     z: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Heuristic initial step size (Hoffman & Gelman 2014, Algorithm 4).
+    """Heuristic initial step size (Hoffman & Gelman 2014, Algorithm 4),
+    one per chain.
 
-    The JAX ``while_loop`` becomes a Python loop: each trial step size
-    costs one leapfrog step and one host sync on the comparison."""
+    The JAX ``while_loop`` under ``vmap`` becomes a Python loop over all
+    chains at once: each trial costs one batched leapfrog step and one
+    host sync on whether any chain is still searching.  Each chain
+    doubles or halves its own step size until its own acceptance
+    crosses the target; a chain that has crossed keeps its step size."""
     logp0, grad0 = logp_and_grad(x0)
     if z is None:
         z = normal_like(generator, x0)
@@ -176,13 +204,19 @@ def find_reasonable_step_size(
     def log_accept(step_size):
         st = IntegratorState(x0, r0, logp0, grad0)
         end = leapfrog(logp_and_grad, st, step_size, inv_mass)
-        return _energy_delta(energy0, end, inv_mass)[1]
+        return energy_delta(energy0, end, inv_mass)[1]
 
-    step_size = torch.tensor(init_step_size, dtype=x0.dtype, device=x0.device)
-    direction = 1.0 if log_accept(step_size).item() > log_target else -1.0
+    step_size = torch.full(logp0.shape, init_step_size, dtype=x0.dtype, device=x0.device)
+    delta = log_accept(step_size)
+    direction = torch.where(delta > log_target, 1.0, -1.0).to(x0.dtype)
+
+    def crossed(delta):
+        return torch.where(direction > 0, delta < log_target, delta > log_target)
+
+    searching = ~crossed(delta)
     for _ in range(max_iters):
-        delta = log_accept(step_size).item()
-        if (delta < log_target) if direction > 0 else (delta > log_target):
+        if not bool(searching.any()):
             break
-        step_size = step_size * (2.0**direction)
+        step_size = torch.where(searching, step_size * (2.0**direction), step_size)
+        searching = searching & ~crossed(log_accept(step_size))
     return step_size

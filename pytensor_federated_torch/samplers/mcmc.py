@@ -2,22 +2,27 @@
 
 Port of the JAX package's ``samplers/mcmc.py`` (``sample`` with the
 NUTS, HMC and Metropolis kernels, and ``find_map``).  The JAX package
-runs every chain as one ``vmap`` lane of one jitted ``scan``; here the
-chains run one after another, eagerly, on the device of the initial
-parameters, each with its own ``torch.Generator`` seeded from the
-caller's.  Returned samples keep the params tree with leading
-``(chains, draws)`` axes, as in JAX.
+runs every chain as one ``vmap`` lane of one jitted ``scan``; here every
+chain runs in one batch too, eagerly, on the device of the initial
+parameters: each step is one transition of all chains in lockstep, and
+each leapfrog step one value+grad evaluation of all of them
+(:func:`make_batch_logp_and_grad`).  Returned samples keep the params
+tree with leading ``(chains, draws)`` axes, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..telemetry import flightrec as _flightrec
+from ..telemetry import metrics as _metrics
+from ..telemetry import spans as _tspans
 from ..utils import value_and_grad
 from .hmc import HMCState, find_reasonable_step_size, hmc_init, hmc_step
 from .metropolis import metropolis_init, metropolis_step
@@ -28,17 +33,62 @@ from .util import (
     da_update,
     flatten_logp,
     ravel,
+    ravel_batch,
     welford_covariance,
     welford_init,
     welford_update,
     welford_variance,
 )
 
+# Sampler step timing, with the JAX package's metric names and labels.
+# A run's wall time is taken after the device has finished it; the
+# per-step time is derived from it: wall / (chains * (warmup + draws)).
+_SAMPLE_RUN_S = _metrics.histogram(
+    "pftpu_sampler_run_seconds",
+    "Device wall time of one sample() run (all chains, warmup+draws)",
+    ("kernel",),
+)
+_STEP_S = _metrics.histogram(
+    "pftpu_sampler_step_seconds",
+    "Derived per-transition time: run wall / (chains * (warmup+draws))",
+    ("kernel",),
+)
+_DRAWS = _metrics.counter(
+    "pftpu_sampler_draws_total",
+    "Posterior draws produced (chains * num_samples)",
+    ("kernel",),
+)
+
+
+def _record_run(kernel, device, t0, num_chains, num_warmup, num_samples):
+    """Telemetry-on path only: wait for the device (kernels run
+    asynchronously; an un-synced wall time would rate the enqueueing,
+    not the run), then record run wall, derived per-transition time, and
+    draws.  The run settling is also a sampler phase transition for the
+    flight record: an incident dump shows whether the process died
+    inside or between sampling runs."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    _SAMPLE_RUN_S.labels(kernel=kernel).observe(wall)
+    transitions = num_chains * (num_warmup + num_samples)
+    if transitions:
+        _STEP_S.labels(kernel=kernel).observe(wall / transitions)
+    _DRAWS.labels(kernel=kernel).inc(num_chains * num_samples)
+    _flightrec.record(
+        "sampler.run",
+        kernel=kernel,
+        chains=num_chains,
+        warmup=num_warmup,
+        draws=num_samples,
+        wall_s=wall,
+    )
+
 
 class WarmupResult(NamedTuple):
     state: HMCState
-    step_size: torch.Tensor
-    inv_mass: torch.Tensor
+    step_size: torch.Tensor  # (C,)
+    inv_mass: torch.Tensor  # (C, d) or (C, d, d)
 
 
 def make_flat_logp_and_grad(
@@ -56,19 +106,66 @@ def make_flat_logp_and_grad(
     through ``logp_fn`` as an autograd Function.
     """
     flat_logp, flat_init, unravel = flatten_logp(logp_fn, init_params)
+    lg = _one_chain_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
+    return flat_logp, flat_init.detach(), unravel, lg
 
+
+def _one_chain_logp_and_grad(flat_logp, unravel, logp_and_grad_fn):
     if logp_and_grad_fn is not None:
 
         def lg(x):
             v, g = logp_and_grad_fn(unravel(x))
             return v, ravel(g)[0]
 
+        return lg
+    return lambda x: value_and_grad(flat_logp, x)
+
+
+def make_batch_logp_and_grad(
+    flat_logp: Callable,
+    unravel: Callable,
+    logp_and_grad_fn: Optional[Callable] = None,
+) -> Callable:
+    """The value+grad of a chain batch: ``lg(X: (C, d)) -> ((C,), (C,
+    d))``, one evaluation for every chain.
+
+    Without ``logp_and_grad_fn`` it is ``torch.func.vmap(flat_logp)`` and
+    one ``torch.autograd`` pass through the sum of the chains' values:
+    the chains are independent, so each chain's gradient of the sum is
+    its own.  A kernel under ``flat_logp`` (an autograd Function with a
+    vmap rule, such as the linreg kernel's) runs once for the batch.
+    With ``logp_and_grad_fn`` (params tree -> ``(logp, grads tree)``) it
+    is ``torch.func.vmap`` of that function: a pure-torch one (such as
+    ``FederatedLogp.logp_and_grad``) is evaluated once for the batch, a
+    host callback once per chain in turn (its vmap rule).
+
+    A batch of one chain skips ``vmap``: the same evaluation without its
+    host cost, about 1 ms per call (a NUTS leaf) on the CPU."""
+    if logp_and_grad_fn is None:
+        batched = torch.func.vmap(flat_logp)
+
+        def lg_batch(x):
+            x = x.detach().requires_grad_(True)
+            v = batched(x)
+            (g,) = torch.autograd.grad(v.sum(), x)
+            return v.detach(), g
+
     else:
+        batched = torch.func.vmap(lambda x: logp_and_grad_fn(unravel(x)))
 
-        def lg(x):
-            return value_and_grad(flat_logp, x)
+        def lg_batch(x):
+            v, g = batched(x)
+            return v, ravel_batch(g)
 
-    return flat_logp, flat_init.detach(), unravel, lg
+    lg_one = _one_chain_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
+
+    def lg(x):
+        if x.shape[0] == 1:
+            v, g = lg_one(x[0])
+            return v[None], g[None]
+        return lg_batch(x)
+
+    return lg
 
 
 def make_kernel_step(
@@ -92,18 +189,22 @@ def _warmup(
     target_accept: float = 0.8,
     dense_mass: bool = False,
 ) -> WarmupResult:
-    """Stan-style three-stage warmup: step size + diagonal (or, with
-    ``dense_mass``, full-covariance) mass adaptation."""
-    dtype, dim, device = x0.dtype, x0.shape[0], x0.device
+    """Stan-style three-stage warmup of every chain in ``x0`` (``(C,
+    d)``): step size + diagonal (or, with ``dense_mass``, full-covariance)
+    mass adaptation, one step size and mass per chain."""
+    dtype, (C, dim), device = x0.dtype, x0.shape, x0.device
     sched = AdaptSchedule.make(num_warmup)
 
+    def fresh_welford():
+        return welford_init(dim, dtype, dense=dense_mass, device=device, batch=(C,))
+
     if dense_mass:
-        inv_mass = torch.eye(dim, dtype=dtype, device=device)
+        inv_mass = torch.eye(dim, dtype=dtype, device=device).expand(C, dim, dim)
     else:
-        inv_mass = torch.ones((dim,), dtype=dtype, device=device)
+        inv_mass = torch.ones((C, dim), dtype=dtype, device=device)
     step0 = find_reasonable_step_size(logp_and_grad, x0, generator, inv_mass)
     da = da_init(step0)
-    wf = welford_init(dim, dtype, dense=dense_mass, device=device)
+    wf = fresh_welford()
     state = hmc_init(logp_and_grad, x0)
 
     for update_mass, in_slow in zip(sched.update_mass, sched.in_slow):
@@ -117,19 +218,11 @@ def _warmup(
             inv_mass = welford_covariance(wf) if dense_mass else welford_variance(wf)
             # Restart step-size search around the current averaged value.
             da = da_init(torch.exp(da.log_step_avg))
-            wf = welford_init(dim, dtype, dense=dense_mass, device=device)
+            wf = fresh_welford()
     # With num_warmup=0 no da_update ever ran and log_step_avg is still
     # its zero init — fall back to the found reasonable step size.
     log_step = torch.where(da.count > 0, da.log_step_avg, da.log_step)
     return WarmupResult(state, torch.exp(log_step), inv_mass)
-
-
-def _stack(values: list, device) -> torch.Tensor:
-    """Stack per-draw stats: device tensors as they are, host values
-    (the NUTS flags and counts) in one copy."""
-    if torch.is_tensor(values[0]):
-        return torch.stack(values)
-    return torch.tensor(values, device=device)
 
 
 @dataclasses.dataclass
@@ -140,6 +233,10 @@ class SampleResult:
     stats: dict  # accept_prob / diverging / energy / depth, (chains, draws)
     step_size: torch.Tensor  # (chains,)
     inv_mass: torch.Tensor  # (chains, dim) — or (chains, dim, dim) dense
+    #: sampler-specific diagnostics that are not per draw (ChEES's
+    #: adapted trajectory length), kept out of ``stats``, whose every
+    #: entry is (chains, draws).
+    extra: Optional[dict] = None
 
     def summary(self, *, hdi_prob: float = 0.94, rank_normalized: bool = False) -> dict:
         """mean/sd/HDI/split-R̂/ESS per component (samplers.convergence)."""
@@ -170,96 +267,95 @@ def sample(
     (the reference's CI sampler).  Pass ``logp_and_grad_fn`` to supply a
     fused value+grad (e.g. ``FederatedLogp.logp_and_grad``); otherwise
     gradients come from ``torch.autograd`` through ``logp_fn``.
-    ``generator`` lives on the device of ``init_params``, where the
-    whole run happens; it draws the initial jitter and one seed per
-    chain.
+
+    All ``num_chains`` chains run as one batch: every transition steps
+    all of them in lockstep, and every leapfrog step evaluates
+    ``logp_fn`` once for all of them, under ``torch.func.vmap``.
+    ``generator`` lives on the device of ``init_params``, where the whole
+    run happens; it draws the initial jitter and then, step by step, the
+    random numbers of every chain at once.  Chain ``c``'s draws therefore
+    depend on ``num_chains`` (in the JAX package they do not: each chain
+    has its own key).
     """
-    flat_logp, flat_init, unravel, lg = make_flat_logp_and_grad(
-        logp_fn, init_params, logp_and_grad_fn
-    )
+    flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(logp_fn, init_params)
     dtype, device = flat_init.dtype, flat_init.device
     init_flat = flat_init.expand(num_chains, -1)
     if jitter:
         init_flat = init_flat + jitter * torch.randn(
             init_flat.shape, generator=generator, dtype=dtype, device=device
         )
-    seeds = torch.randint(
-        0, 2**62, (num_chains,), generator=generator, device=device
-    ).tolist()
     if kernel == "metropolis":
-        return _sample_metropolis(
-            flat_logp, unravel, init_flat, seeds, num_warmup, num_samples
-        )
+        with _tspans.span("mcmc.sample", kernel="metropolis", chains=num_chains):
+            t0 = time.perf_counter()
+            result = _sample_metropolis(
+                flat_logp, unravel, init_flat, generator, num_warmup, num_samples
+            )
+            if _tspans.enabled():
+                _record_run("metropolis", device, t0, num_chains, num_warmup, num_samples)
+        return result
+    lg = make_batch_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
     kernel_step = make_kernel_step(
         lg, kernel, max_depth=max_depth, num_hmc_steps=num_hmc_steps
     )
 
-    draws, stats, step_sizes, inv_masses = [], [], [], []
-    for x0, seed in zip(init_flat, seeds):
-        chain_gen = torch.Generator(device=device).manual_seed(seed)
+    with _tspans.span(
+        "mcmc.sample", kernel=kernel, chains=num_chains, warmup=num_warmup, draws=num_samples
+    ):
+        t0 = time.perf_counter()
         warm = _warmup(
             lg,
-            x0,
-            chain_gen,
+            init_flat,
+            generator,
             num_warmup=num_warmup,
             kernel_step=kernel_step,
             target_accept=target_accept,
             dense_mass=dense_mass,
         )
         state = warm.state
-        xs, chain_stats = [], {"accept_prob": [], "diverging": [], "energy": []}
-        if kernel == "nuts":
-            chain_stats["depth"] = []
+        names = ["accept_prob", "diverging", "energy"] + (["depth"] if kernel == "nuts" else [])
+        xs, stats = [], {name: [] for name in names}
         for _ in range(num_samples):
             state, info = kernel_step(
-                state, chain_gen, step_size=warm.step_size, inv_mass=warm.inv_mass
+                state, generator, step_size=warm.step_size, inv_mass=warm.inv_mass
             )
             xs.append(state.x)
-            for name, values in chain_stats.items():
+            for name, values in stats.items():
                 values.append(getattr(info, name))
-        draws.append(torch.stack(xs))
-        stats.append({k: _stack(v, device) for k, v in chain_stats.items()})
-        step_sizes.append(warm.step_size)
-        inv_masses.append(warm.inv_mass)
-
-    return SampleResult(
-        samples=unravel(torch.stack(draws)),
-        stats={k: torch.stack([s[k] for s in stats]) for k in stats[0]},
-        step_size=torch.stack(step_sizes),
-        inv_mass=torch.stack(inv_masses),
-    )
+        result = SampleResult(
+            samples=unravel(torch.stack(xs, dim=1)),
+            stats={k: torch.stack(v, dim=1) for k, v in stats.items()},
+            step_size=warm.step_size,
+            inv_mass=warm.inv_mass,
+        )
+        if _tspans.enabled():
+            _record_run(kernel, device, t0, num_chains, num_warmup, num_samples)
+    return result
 
 
 @torch.no_grad()
-def _sample_metropolis(flat_logp, unravel, init_flat, seeds, num_warmup, num_samples):
-    """Adaptive-scale random-walk Metropolis, one chain after another.
+def _sample_metropolis(flat_logp, unravel, init_flat, generator, num_warmup, num_samples):
+    """Adaptive-scale random-walk Metropolis, every chain in one batch.
 
-    Warmup adapts the log proposal scale Robbins-Monro style toward 0.35
-    acceptance; the scale is a device tensor throughout, so no step
-    waits for the host."""
-    device = init_flat.device
-    draws, totals, scales = [], [], []
-    for x0, seed in zip(init_flat, seeds):
-        chain_gen = torch.Generator(device=device).manual_seed(seed)
-        state = metropolis_init(flat_logp, x0)
-        log_scale = torch.zeros((), dtype=init_flat.dtype, device=device)
-        for _ in range(num_warmup):
-            prev_acc = state.n_accept
-            state = metropolis_step(flat_logp, state, chain_gen, step_size=torch.exp(log_scale))
-            log_scale = log_scale + 0.1 * ((state.n_accept - prev_acc) - 0.35)
-        step_size = torch.exp(log_scale)
-        xs, acc = [], []
-        for _ in range(num_samples):
-            state = metropolis_step(flat_logp, state, chain_gen, step_size=step_size)
-            xs.append(state.x)
-            acc.append(state.n_accept)
-        draws.append(torch.stack(xs))
-        totals.append(torch.stack(acc))
-        scales.append(step_size)
+    Warmup adapts each chain's log proposal scale Robbins-Monro style
+    toward 0.35 acceptance; the scales are a ``(C,)`` device tensor
+    throughout, so no step waits for the host."""
+    logp = torch.func.vmap(flat_logp)
+    state = metropolis_init(logp, init_flat)
+    log_scale = torch.zeros(init_flat.shape[:1], dtype=init_flat.dtype, device=init_flat.device)
+    for _ in range(num_warmup):
+        prev_acc = state.n_accept
+        state = metropolis_step(logp, state, generator, step_size=torch.exp(log_scale))
+        log_scale = log_scale + 0.1 * ((state.n_accept - prev_acc) - 0.35)
+    step_size = torch.exp(log_scale)
+    xs, acc = [], []
+    for _ in range(num_samples):
+        state = metropolis_step(logp, state, generator, step_size=step_size)
+        xs.append(state.x)
+        acc.append(state.n_accept)
     return SampleResult(
-        samples=unravel(torch.stack(draws)),
-        stats={"accept_total": torch.stack(totals)},
-        step_size=torch.stack(scales),
+        samples=unravel(torch.stack(xs, dim=1)),
+        stats={"accept_total": torch.stack(acc, dim=1)},
+        step_size=step_size,
         inv_mass=torch.ones_like(init_flat),
     )
 

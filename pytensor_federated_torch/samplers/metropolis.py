@@ -5,6 +5,11 @@ decision is a ``torch.where`` on the device, so a step needs no host
 sync.  The proposal's standard-normal draw and the accept uniform come
 from ``generator`` unless given as ``draws=(z, u)``, so that a step can
 be held against the JAX one on the same draws.
+
+A leading chain axis steps every chain at once, as ``jax.vmap`` of the
+JAX step does: positions ``(C, d)``, a log density ``flat_logp`` that
+takes ``(C, d)`` and returns ``(C,)``, and a ``(C,)`` or shared step
+size.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from .hmc import normal_like, uniform_like
+from .hmc import _col, normal_like, uniform_like
 
 
 class MetropolisState(NamedTuple):
@@ -23,9 +28,8 @@ class MetropolisState(NamedTuple):
 
 
 def metropolis_init(flat_logp: Callable, x0: torch.Tensor) -> MetropolisState:
-    return MetropolisState(
-        x=x0, logp=flat_logp(x0), n_accept=torch.zeros((), dtype=x0.dtype, device=x0.device)
-    )
+    n_accept = torch.zeros(x0.shape[:-1], dtype=x0.dtype, device=x0.device)
+    return MetropolisState(x=x0, logp=flat_logp(x0), n_accept=n_accept)
 
 
 def metropolis_step(
@@ -39,11 +43,11 @@ def metropolis_step(
     if draws is None:
         draws = normal_like(generator, state.x), uniform_like(generator, state.logp)
     z, u = draws
-    prop = state.x + step_size * z
+    prop = state.x + _col(step_size, state.x) * z
     logp_prop = flat_logp(prop)
     accept = torch.log(u) < (logp_prop - state.logp)
     return MetropolisState(
-        x=torch.where(accept, prop, state.x),
+        x=torch.where(accept[..., None], prop, state.x),
         logp=torch.where(accept, logp_prop, state.logp),
         n_accept=state.n_accept + accept.to(state.x.dtype),
     )

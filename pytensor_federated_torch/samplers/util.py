@@ -19,6 +19,14 @@ import torch
 from ..utils import tree_leaves, tree_map
 
 
+def ravel_batch(tree: Any, batch_ndim: int = 1) -> torch.Tensor:
+    """Leaves with ``batch_ndim`` leading chain axes, raveled into one
+    ``(..., dim)`` tensor in :func:`ravel`'s order."""
+    leaves = tree_leaves(tree)
+    batch = tuple(leaves[0].shape[:batch_ndim])
+    return torch.cat([leaf.reshape(batch + (-1,)) for leaf in leaves], dim=-1)
+
+
 def ravel(params: Any):
     """``(flat, unravel)`` for a tree of tensors, ``ravel_pytree`` order.
 
@@ -49,7 +57,11 @@ def flatten_logp(logp_fn: Callable[[Any], torch.Tensor], example_params: Any):
 
 
 class WelfordState(NamedTuple):
-    """Streaming mean/variance (diagonal) — mass-matrix adaptation."""
+    """Streaming mean/variance — mass-matrix adaptation.
+
+    Every field may carry leading chain axes: ``mean`` ``(..., dim)``,
+    ``m2`` ``(..., dim)`` (diagonal) or ``(..., dim, dim)`` (dense),
+    ``count`` ``(...)``, one accumulator per chain."""
 
     mean: torch.Tensor
     m2: torch.Tensor
@@ -57,24 +69,36 @@ class WelfordState(NamedTuple):
 
 
 def welford_init(
-    dim: int, dtype=torch.float32, *, dense: bool = False, device: Any = None
+    dim: int,
+    dtype=torch.float32,
+    *,
+    dense: bool = False,
+    device: Any = None,
+    batch: tuple = (),
 ) -> WelfordState:
     """``dense=True`` accumulates the full ``(dim, dim)`` second-moment
-    matrix (for dense-mass adaptation) instead of the diagonal."""
-    m2_shape = (dim, dim) if dense else (dim,)
+    matrix (for dense-mass adaptation) instead of the diagonal.
+    ``batch`` is the shape of the leading chain axes (``(C,)`` for C
+    chains, as ``jax.vmap`` of the JAX function gives)."""
+    batch = tuple(batch)
+    m2_shape = batch + ((dim, dim) if dense else (dim,))
     return WelfordState(
-        mean=torch.zeros((dim,), dtype=dtype, device=device),
+        mean=torch.zeros(batch + (dim,), dtype=dtype, device=device),
         m2=torch.zeros(m2_shape, dtype=dtype, device=device),
-        count=torch.zeros((), dtype=dtype, device=device),
+        count=torch.zeros(batch, dtype=dtype, device=device),
     )
+
+
+def _is_dense(state: WelfordState) -> bool:
+    return state.m2.ndim == state.mean.ndim + 1
 
 
 def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
     count = state.count + 1.0
     delta = x - state.mean
-    mean = state.mean + delta / count
-    if state.m2.ndim == 2:
-        m2 = state.m2 + torch.outer(delta, x - mean)
+    mean = state.mean + delta / count[..., None]
+    if _is_dense(state):
+        m2 = state.m2 + delta[..., :, None] * (x - mean)[..., None, :]
     else:
         m2 = state.m2 + delta * (x - mean)
     return WelfordState(mean, m2, count)
@@ -82,9 +106,9 @@ def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
 
 def welford_variance(state: WelfordState, *, regularize: bool = True) -> torch.Tensor:
     """Diagonal variance estimate, Stan-style regularized toward unit."""
-    var = state.m2 / torch.clamp(state.count - 1.0, min=1.0)
+    var = state.m2 / torch.clamp(state.count - 1.0, min=1.0)[..., None]
     if regularize:
-        n = state.count
+        n = state.count[..., None]
         var = (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0))
     return var
 
@@ -93,17 +117,19 @@ def welford_covariance(state: WelfordState, *, regularize: bool = True) -> torch
     """Full covariance estimate from a ``dense=True`` accumulator, shrunk
     toward a small multiple of the identity on the same ``n/(n+5)``
     schedule as :func:`welford_variance`."""
-    cov = state.m2 / torch.clamp(state.count - 1.0, min=1.0)
+    cov = state.m2 / torch.clamp(state.count - 1.0, min=1.0)[..., None, None]
     if regularize:
-        n = state.count
-        dim = state.mean.shape[0]
+        n = state.count[..., None, None]
+        dim = state.mean.shape[-1]
         eye = torch.eye(dim, dtype=state.mean.dtype, device=state.mean.device)
         cov = (n / (n + 5.0)) * cov + 1e-3 * (5.0 / (n + 5.0)) * eye
     return cov
 
 
 class DualAveragingState(NamedTuple):
-    """Nesterov dual averaging on log step size (Hoffman & Gelman 2014)."""
+    """Nesterov dual averaging on log step size (Hoffman & Gelman 2014).
+
+    Elementwise: a ``(C,)`` step size gives one state per chain."""
 
     log_step: torch.Tensor
     log_step_avg: torch.Tensor

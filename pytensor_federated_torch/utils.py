@@ -71,7 +71,14 @@ def value_and_grad(fn: Callable[[Any], torch.Tensor], params: Any) -> Tuple[torc
 
     ``params`` is a tree of tensors; the gradient has its structure.
     Inputs are detached first, so the call never writes into the
-    caller's autograd graph."""
+    caller's autograd graph.  Inside ``torch.func.vmap`` (over chains,
+    say), where ``torch.autograd.grad`` cannot run on batched tensors,
+    the same reverse pass is ``torch.func.vjp``'s, run without building a
+    graph of the backward (first order, as outside vmap)."""
+    if torch._C._are_functorch_transforms_active():
+        value, vjp_fn = torch.func.vjp(fn, params)
+        (grads,) = vjp_fn(torch.ones_like(value), create_graph=False)
+        return value, grads
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
     value = fn(leaves)
     grads = torch.autograd.grad(value, tree_leaves(leaves))

@@ -294,3 +294,101 @@ def test_logistic_forms_agree_on_the_card():
             np.testing.assert_allclose(float(vb), float(va), rtol=2e-4)
             for k in ga:
                 np.testing.assert_allclose(gb[k].cpu(), ga[k].cpu(), rtol=2e-3, atol=1e-3)
+
+
+# ---- the chain axis and lockstep chains ----
+
+
+def _chain_case(S, N, chains, dev, seed=0):
+    scalars, offsets, x, y, m = _case(S, N, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    scalars = scalars + 0.1 * torch.randn((chains, 3), generator=g, device=dev)
+    offsets = offsets + torch.randn((chains, S), generator=g, device=dev)
+    return scalars, offsets, x, y, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3, 16])
+@pytest.mark.parametrize("S,N", [(8, 64), (5, 4099), (4096, 37), (8, 131_072)])
+def test_chain_batched_kernel_matches_chains_alone_and_plain_version(S, N, chains):
+    """One launch for C parameter sets: each chain's bits equal the chain
+    called alone (for C = 1, the unbatched call), and each chain is
+    within the tolerances above of the float64 plain version."""
+    scal, offs, x, y, m = _chain_case(S, N, chains, _cuda(), seed=10)
+    before = linreg_reductions.launches
+    red, tot = linreg_reductions_and_totals(scal, offs, x, y, m)
+    assert linreg_reductions.launches == before + 1
+    assert red[0].shape == (chains, S) and tot.shape == (chains, 4)
+    ref = linreg_reductions_ref(scal.double().cpu(), offs.double().cpu(),
+                                *(t.double().cpu() for t in (x, y, m)))
+    for c in range(chains):
+        one, one_tot = linreg_reductions_and_totals(scal[c], offs[c], x, y, m)
+        assert all(torch.equal(a, b[c]) for a, b in zip(one, red))
+        assert torch.equal(one_tot, tot[c])
+        np.testing.assert_allclose(red[0][c].cpu().double(), ref[0][c], rtol=2e-5)
+    capped = linreg_kernel._launch(scal.unbind(-1), offs, x, y, m, max_blocks=3)
+    assert all(torch.equal(capped[..., :S, k], red[k]) for k in range(4))
+
+
+@pytest.mark.gpu
+def test_kernel_under_vmap_is_one_launch_for_all_chains():
+    """``torch.func.vmap`` of prior + data_logp over chains, then one
+    backward pass: one kernel launch, each chain's value and gradient
+    those of its own call."""
+    dev = _cuda()
+    scal, offs, x, y, m = _chain_case(8, 64, 4, dev, seed=11)
+    fn = linreg_logp_grad_fn(x, y, m)
+    p = {"intercept": scal[:, 0], "slope": scal[:, 1], "log_sigma": scal[:, 2], "offsets": offs}
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+
+    def post(q):
+        return -0.5 * q["slope"] ** 2 + fn.data_logp(q)
+
+    before = linreg_reductions.launches
+    values = torch.func.vmap(post)(p)
+    assert linreg_reductions.launches == before + 1
+    grads = torch.autograd.grad(values.sum(), list(p.values()))
+    for c in range(4):
+        v, g = value_and_grad(post, {k: t[c].detach() for k, t in p.items()})
+        assert torch.equal(v, values[c].detach())
+        for gb, k in zip(grads, p):
+            np.testing.assert_allclose(gb[c].cpu(), g[k].cpu(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_lockstep_nuts_transition_on_the_card_matches_the_cpu():
+    """One NUTS transition of four chains in lockstep on the flagship
+    posterior: through the kernel on the card and through its plain
+    version on the CPU, on the same draws.  Float32 in both; the trees
+    must make the same choices and land on the same positions within
+    rtol 1e-4 / atol 1e-5."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.samplers import hmc, nuts
+    from pytensor_federated_torch.samplers.mcmc import make_batch_logp_and_grad, make_flat_logp_and_grad
+
+    dev = _cuda()
+    out = {}
+    draws = None
+    for device in ("cuda", "cpu"):
+        data, _ = pft.generate_node_data(8, n_obs=64, seed=123, device=device)
+        model = pft.FederatedLinearRegression(data)
+        (xx, yy), mask = data.tree()
+        kern = linreg_logp_grad_fn(xx, yy, mask)
+        flat_logp, flat0, unravel, _ = make_flat_logp_and_grad(
+            lambda q: model.prior_logp(q) + kern.data_logp(q), model.init_params())
+        lg = make_batch_logp_and_grad(flat_logp, unravel)
+        x = flat0 + 0.1 * torch.arange(4 * flat0.shape[0], dtype=flat0.dtype,
+                                       device=flat0.device).reshape(4, -1) / 44.0
+        if draws is None:
+            draws = nuts.draw_nuts(torch.Generator(device="cpu").manual_seed(12), x.cpu(), 6)
+        state = hmc.hmc_init(lg, x)
+        before = linreg_reductions.launches
+        new, info = nuts.nuts_step(lg, state, None, step_size=0.02, inv_mass=torch.ones_like(x),
+                                   max_depth=6, draws=nuts.NUTSDraws(*(t.to(device) for t in draws)))
+        out[device] = (new, info, linreg_reductions.launches - before)
+    (gn, gi, launches), (cn, ci, cpu_launches) = out["cuda"], out["cpu"]
+    assert cpu_launches == 0 and launches > 0
+    assert gi.depth.tolist() == ci.depth.tolist()
+    assert gi.diverging.tolist() == ci.diverging.tolist()
+    np.testing.assert_allclose(gn.x.cpu(), cn.x, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(gn.logp.cpu(), cn.logp, rtol=1e-5)
