@@ -8,8 +8,11 @@ convergence diagnostics, every chain in lockstep.  ChEES-HMC
 (``samplers.chees_sample``) adapts across such a batch.  Beside it, the
 models of BASELINE.json configs 3-5 (the radon GLM, the Lotka-Volterra
 ODE, the federated logistic regressions), ``find_map``, Metropolis and
-the float32 precision policy.  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+the float32 precision policy; the Gaussian processes, the
+linear-Gaussian state-space models with their parallel-in-time Kalman
+filter, parallel tempering (``samplers.pt_sample``) and FLOP accounting
+(:mod:`.flopcount`).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 
 The federation wire: a node serves its logp+grad over npwire frames on
 TCP (:mod:`.service`), byte for byte the JAX package's frames, and a
@@ -17,19 +20,26 @@ driver fans out to its nodes with :class:`ParallelLogpGrad`.  This
 package imports neither JAX, nor the JAX package, nor gRPC.
 """
 
-from . import precision, samplers
+from . import flopcount, precision, samplers
 from .convert import params_from_jax, sharded_data_from_jax
 from .models import (
+    FederatedExactGP,
+    FederatedLGSSMPanel,
     FederatedLinearRegression,
     FederatedLogisticRegression,
+    FederatedSparseGP,
     HierarchicalLogisticRegression,
     HierarchicalRadonGLM,
     LotkaVolterraModel,
+    generate_gp_data,
     generate_hier_logistic_data,
+    generate_lgssm_data,
     generate_logistic_data,
     generate_lv_data,
     generate_node_data,
     generate_radon_data,
+    kalman_logp_parallel,
+    kalman_logp_seq,
     linreg_suffstats,
     make_lv_model,
 )
@@ -53,9 +63,12 @@ from .wrappers import logp_grad_from_logp, wrap_logp_fn, wrap_logp_grad_fn
 __all__ = [
     "LOG_2PI",
     "ArraysToArraysOp",
+    "FederatedExactGP",
+    "FederatedLGSSMPanel",
     "FederatedLinearRegression",
     "FederatedLogisticRegression",
     "FederatedLogp",
+    "FederatedSparseGP",
     "HierarchicalLogisticRegression",
     "HierarchicalRadonGLM",
     "LogpGradOp",
@@ -66,11 +79,16 @@ __all__ = [
     "ShapeDtypeStruct",
     "ShardedData",
     "blackbox_logp_grad",
+    "flopcount",
+    "generate_gp_data",
     "generate_hier_logistic_data",
+    "generate_lgssm_data",
     "generate_logistic_data",
     "generate_lv_data",
     "generate_node_data",
     "generate_radon_data",
+    "kalman_logp_parallel",
+    "kalman_logp_seq",
     "linreg_logp_grad_fn",
     "linreg_prior_logp",
     "linreg_reductions",

@@ -11,10 +11,10 @@ ported yet.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from ..utils import tree_leaves, tree_map, value_and_grad
 
@@ -66,13 +66,16 @@ class FederatedLogp:
     ``data`` leaves carry a leading ``n_shards`` axis (build
     heterogeneous shards with :func:`..parallel.packing.pack_shards`).
 
-    ``remat=True`` runs the shard map under ``torch.utils.checkpoint``:
-    the backward pass recomputes the shards' intermediate tensors instead
-    of holding them in device memory, which trades arithmetic for memory
-    when shards are large.  Inside ``torch.func.vmap`` (a batch of
-    chains) the checkpoint cannot recompute the vmapped function, so
-    there the shard map keeps its intermediates: the same values and
-    gradients, without the memory saving.
+    ``remat=True`` saves only the shard map's inputs for the backward
+    pass, which recomputes the shards' intermediate tensors instead of
+    holding them in device memory: arithmetic traded for memory when
+    shards are large (:class:`_Remat`).  It holds inside
+    ``torch.func.vmap`` too, as ``jax.checkpoint`` composes with
+    ``jax.vmap``: for a batch of chains whose graph a later
+    ``torch.autograd.grad`` walks, and under ``torch.func.vjp`` (as
+    :func:`..utils.value_and_grad` runs inside ``vmap``), which
+    otherwise holds every intermediate until its ``vjp_fn`` runs.
+    Values and gradients equal the non-remat path's.
 
     Every method works under an outer ``torch.func.vmap`` over chains
     (the shard map is then a vmap nested in it).
@@ -88,9 +91,22 @@ class FederatedLogp:
         def run(params, data):
             return torch.func.vmap(lambda d: self.per_shard_logp(params, d))(data)
 
-        if self.remat and not torch._C._are_functorch_transforms_active():
-            return torch.utils.checkpoint.checkpoint(run, params, data, use_reentrant=False)
-        return run(params, data)
+        if not self.remat:
+            return run(params, data)
+        # _Remat differentiates one flat parameter vector: its nested vjp
+        # under vmap trips a functorch internal assert (``batched ==
+        # nullptr``, torch 2.13) with several differentiated inputs.
+        p_leaves, d_leaves = tree_leaves(params), tree_leaves(data)
+        meta = [(leaf.shape, leaf.dtype) for leaf in p_leaves]
+        flat = torch.cat([leaf.reshape(-1) for leaf in p_leaves])
+
+        def run_flat(flat, *d_leaves):
+            parts = torch.split(flat, [math.prod(shape) for shape, _ in meta])
+            it_p = (part.reshape(shape).to(dtype) for part, (shape, dtype) in zip(parts, meta))
+            it_d = iter(d_leaves)
+            return run(tree_map(lambda _: next(it_p), params), tree_map(lambda _: next(it_d), data))
+
+        return _Remat.apply(run_flat, flat, *d_leaves)
 
     def per_shard_logps(self, params: Any) -> torch.Tensor:
         """Vector of per-shard contributions."""
@@ -145,6 +161,35 @@ class FederatedLogp:
             )
         perm = torch.randperm(self.n_shards, generator=generator, device=generator.device)
         return perm[:num_shards]
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(flat_params, *data)`` whose backward recomputes ``fn``.
+
+    Saves only its inputs; the backward pass runs ``fn`` again under
+    ``torch.func.vjp`` with respect to ``flat_params`` (the data need no
+    gradient).  A ``setup_context`` Function with a generated vmap rule,
+    so it composes with ``torch.func.vmap`` over chains and with a grad
+    transform inside it, where ``torch.utils.checkpoint`` cannot
+    recompute."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, flat, *data):
+        return fn(flat, *data)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, *leaves = inputs
+        ctx.fn = fn
+        ctx.save_for_backward(*leaves)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        flat, *data = ctx.saved_tensors
+        _, vjp_fn = torch.func.vjp(lambda p: ctx.fn(p, *data), flat)
+        return (None, *vjp_fn(grad_out), *(None,) * len(data))
 
 
 def sharded_compute(per_shard_fn: PerShardComputeFn, data: Any) -> Callable[[Any], Any]:

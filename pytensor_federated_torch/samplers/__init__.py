@@ -1,6 +1,6 @@
 """Samplers on flat parameter vectors: NUTS, HMC and Metropolis, warmup,
-ChEES-HMC, diagnostics, and the MAP point.  Every chain of a run steps
-in lockstep, as one batch."""
+ChEES-HMC, parallel tempering, diagnostics, and the MAP point.  Every
+chain of a run steps in lockstep, as one batch."""
 
 from .chees import chees_sample
 from .convergence import effective_sample_size, hdi, split_rhat, summary, tail_ess
@@ -23,6 +23,7 @@ from .mcmc import (
     make_kernel_step,
     sample,
 )
+from .tempering import pt_sample
 from .metropolis import MetropolisState, metropolis_init, metropolis_step
 from .nuts import NUTSDraws, NUTSInfo, draw_nuts, nuts_step
 from .util import (

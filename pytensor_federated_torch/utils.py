@@ -84,3 +84,25 @@ def value_and_grad(fn: Callable[[Any], torch.Tensor], params: Any) -> Tuple[torc
     grads = torch.autograd.grad(value, tree_leaves(leaves))
     it = iter(grads)
     return value.detach(), tree_map(lambda _: next(it), leaves)
+
+
+def cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each matrix in ``a``, NaN where the
+    factorization fails — the value ``jnp.linalg.cholesky`` gives.
+
+    ``torch.linalg.cholesky`` raises on a non-positive-definite input,
+    and on CUDA reads its error flag back to the host to do so: one host
+    sync per call, and a crash on a proposal that a sampler should
+    simply reject.  ``cholesky_ex`` without its check does neither; the
+    failed matrices' factors become NaN, so the NaN reaches the energy
+    and the proposal is rejected, as in the JAX package (whose failed
+    factor is NaN below the diagonal and zero above it, as here)."""
+    factor, info = torch.linalg.cholesky_ex(a, check_errors=False)
+    return torch.where((info == 0)[..., None, None], factor, torch.nan).tril()
+
+
+def solve_or_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a⁻¹ b`` for matrices ``b`` (``(..., n, k)``), NaN where ``a`` is
+    singular, with no host sync (see :func:`cholesky_or_nan`)."""
+    x, info = torch.linalg.solve_ex(a, b, check_errors=False)
+    return torch.where((info == 0)[..., None, None], x, torch.nan)

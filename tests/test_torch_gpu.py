@@ -392,3 +392,117 @@ def test_lockstep_nuts_transition_on_the_card_matches_the_cpu():
     assert gi.diverging.tolist() == ci.diverging.tolist()
     np.testing.assert_allclose(gn.x.cpu(), cn.x, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(gn.logp.cpu(), cn.logp, rtol=1e-5)
+
+
+# ---- the state-space models, the Gaussian processes and tempering ----
+
+
+def _vg_close(got, want, value_rtol, grad_rtol, grad_atol):
+    (v, g), (v64, g64) = got, want
+    np.testing.assert_allclose(float(v), float(v64), rtol=value_rtol)
+    for k in g64:
+        np.testing.assert_allclose(g[k].cpu().double(), g64[k], rtol=grad_rtol, atol=grad_atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["kalman_logp_seq", "kalman_logp_parallel"])
+def test_kalman_filter_on_the_card_matches_float64_on_the_cpu(form):
+    """Config 6's data at T = 512 (seed 7): each filter's logp+grad on the
+    card, float32 with TF32 off, against itself in float64 on the CPU at
+    the JAX tests' tolerances (value rtol 1e-4; gradient rtol 1e-3, atol
+    1e-4); the smoothers on the card against each other at 1e-3 / 1e-4."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.models import statespace as ss
+
+    dev = _cuda()
+    y, p = pft.generate_lgssm_data(T=512, seed=7, device=dev)
+    fn = getattr(ss, form)
+    with pft.precision.matmul_precision_ctx("highest"):
+        got = value_and_grad(lambda q: fn(q, y), p)
+        sm_seq = ss.kalman_smoother_seq(p, y)
+        sm_par = ss.kalman_smoother_parallel(p, y)
+    want = value_and_grad(lambda q: fn(q, y.cpu().double()), {k: v.cpu().double() for k, v in p.items()})
+    assert got[0].device.type == "cuda"
+    _vg_close(got, want, 1e-4, 1e-3, 1e-4)
+    for a, b in zip(sm_par, sm_seq):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gp_on_the_card_matches_float64_and_does_not_sync():
+    """Config 10 (8 shards x 256 points): the exact GP's logp+grad on the
+    card against float64 on the CPU (value rtol 1e-4; gradient within
+    1e-3 |g| + 1e-4 max|g|), one warm evaluation with the sync debug mode
+    set to error; the sparse GP (32 inducing points) the same way, its
+    value within 1e-4 |logp| + 1e-5 n."""
+    import pytensor_federated_torch as pft
+
+    dev = _cuda()
+    data, _ = pft.generate_gp_data(8, n_obs=256, seed=9, device=dev)
+    z = torch.linspace(-2.0, 2.0, 32)
+    n_obs = float(data.mask.sum())
+    # The sparse bound is a sum of O(n) terms that crosses zero: its value
+    # within 1e-4 |logp| + 1e-5 n (chip_smoke.py's gp phase).
+    for model, model64, atol in (
+            (pft.FederatedExactGP(data), pft.FederatedExactGP(_f64_cpu(data)), 0.0),
+            (pft.FederatedSparseGP(data, z), pft.FederatedSparseGP(_f64_cpu(data), z.double()),
+             1e-5 * n_obs)):
+        for p in _points(model.init_params()):
+            v, g = model.logp_and_grad(p)
+            v64, g64 = model64.logp_and_grad({k: t.cpu().double() for k, t in p.items()})
+            np.testing.assert_allclose(float(v), float(v64), rtol=1e-4, atol=atol)
+            for k in g64:
+                err = (g[k].cpu().double() - g64[k]).abs()
+                assert torch.all(err <= 1e-3 * g64[k].abs() + 1e-4 * g64[k].abs().max()), k
+        p = model.init_params()
+        model.logp_and_grad(p)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.logp_and_grad(p)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_tempering_on_the_card_matches_float64_on_the_cpu():
+    """Eight leapfrog steps of 16 replicas of config 12's bimodal on the
+    card against the same step in float64 on the CPU with the same draws
+    (rtol 1e-4, atol 1e-4: float32 rounding of the trajectory and of the
+    energies behind the acceptance probability), then a short pt_sample
+    run on the card."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.samplers import tempering as tpt
+    from pytensor_federated_torch.samplers.mcmc import make_batch_logp_and_grad, make_flat_logp_and_grad
+
+    dev = _cuda()
+
+    def logp(p):
+        x = p["x"]
+        return torch.logaddexp(-0.5 * torch.sum(((x + 4.0) / 0.5) ** 2),
+                               -0.5 * torch.sum(((x - 4.0) / 0.5) ** 2))
+
+    g = torch.Generator().manual_seed(0)
+    R, dim = 16, 8
+    x = 4.0 * torch.sign(torch.randn(R, 1, generator=g)) + 0.3 * torch.randn(R, dim, generator=g)
+    beta = torch.tensor(np.geomspace(1.0, 0.01, R))
+    step = 0.05 + 0.1 * torch.rand(R, generator=g, dtype=torch.float64)
+    inv_mass = torch.ones(R, dim, dtype=torch.float64)
+    z = torch.randn(R, dim, generator=g, dtype=torch.float64)
+    uniform = torch.rand(R, generator=g, dtype=torch.float64)
+    out = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        cast = lambda t: t.to(device=device, dtype=dtype)
+        flat_logp, _, unravel, _ = make_flat_logp_and_grad(logp, {"x": torch.zeros(dim, device=device,
+                                                                                    dtype=dtype)})
+        lg = make_batch_logp_and_grad(flat_logp, unravel)
+        u0, g0 = lg(cast(x))
+        out[device] = tpt._hmc_step(lg, cast(x), u0, g0, cast(beta), cast(step), cast(inv_mass), 8,
+                                    cast(z), cast(uniform))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.cpu().double(), b, rtol=1e-4, atol=1e-4)
+    res = pft.samplers.pt_sample(logp, {"x": torch.zeros(dim, device=dev)},
+                                 generator=torch.Generator(device=dev).manual_seed(1), num_chains=2,
+                                 num_warmup=20, num_samples=20, num_temps=8, beta_min=0.01)
+    assert res.samples["x"].device.type == "cuda" and tuple(res.samples["x"].shape) == (2, 20, dim)
+    assert bool(torch.isfinite(res.samples["x"]).all())

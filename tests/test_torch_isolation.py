@@ -20,6 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "pytensor_federated_tpu", "grpc")
 SUBPACKAGES = (
     "service", "telemetry", "faultinject", "routing", "ops", "signatures",
     "wrappers", "fanout_exec", "models", "parallel", "samplers", "precision",
+    "flopcount", "_assoc_scan",
 )
 
 
@@ -91,3 +92,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
         pft.generate_node_data(2, n_obs=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pft.pack_shards([(torch.zeros(3).numpy(),)])
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: pft.generate_lgssm_data(T=4),
+        lambda: pft.models.statespace.default_lgssm_params(),
+        lambda: pft.generate_gp_data(2, n_obs=4),
+        lambda: pft.FederatedLGSSMPanel(torch.zeros(2, 4).numpy()),
+        lambda: pft.flopcount.peak_flops(),
+    ],
+    ids=["generate_lgssm_data", "default_lgssm_params", "generate_gp_data", "FederatedLGSSMPanel",
+         "peak_flops"],
+)
+def test_new_entry_points_default_to_cuda(monkeypatch, call):
+    """The state-space, GP and FLOP entry points ask for CUDA without
+    ``device=`` and raise when there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()

@@ -190,3 +190,49 @@ def test_kernel_posterior_matches_model_logp():
     np.testing.assert_allclose(kv.numpy(), mv.numpy(), rtol=VALUE_RTOL)
     for k in mg:
         np.testing.assert_allclose(kg[k].numpy(), mg[k].numpy(), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("use_suffstats", [False, True], ids=["raw", "suffstats"])
+def test_float64_matches_jax_in_float64(use_suffstats):
+    """The flagship in float64 against the JAX package under
+    ``jax.enable_x64`` on the same data (ragged shards) and points:
+    ``logp``, ``logp_and_grad``, ``FederatedLogp.logp_batch`` and
+    ``per_shard_logps`` at rtol 1e-12 (atol 1e-12 for a gradient entry
+    near zero)."""
+    from pytensor_federated_tpu.parallel.packing import ShardedData as JaxShardedData
+
+    n_obs = [9, 30, 64, 1, 12, 8, 50, 33]
+    jdata, _ = jax_generate(8, n_obs=n_obs, seed=123)
+    tdata, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device="cpu")
+    flats = np.random.default_rng(6).normal(scale=0.3, size=(3, 11))
+    tdata64 = pft.ShardedData(data=tuple(t.double() for t in tdata.data), mask=tdata.mask.double())
+    tm = pft.FederatedLinearRegression(tdata64, use_suffstats=use_suffstats)
+    _, tunravel = ravel(tm.init_params())
+    with jax.enable_x64(True):
+        jdata64 = JaxShardedData(
+            data=tuple(jnp.asarray(np.asarray(a), jnp.float64) for a in jdata.data),
+            mask=jnp.asarray(np.asarray(jdata.mask), jnp.float64),
+        )
+        jm = JaxModel(jdata64, use_suffstats=use_suffstats)
+        _, junravel = ravel_pytree({k: jnp.asarray(np.asarray(v), jnp.float64)
+                                    for k, v in jm.init_params().items()})
+        jp, tp = junravel(jnp.asarray(flats[0])), tunravel(torch.from_numpy(flats[0]))
+        tol = dict(rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(tm.logp(tp).numpy(), np.asarray(jm.logp(jp)), **tol)
+        jv, jg = jm.logp_and_grad(jp)
+        tv, tg = tm.logp_and_grad(tp)
+        assert tv.dtype == torch.float64
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+        for k in jg:
+            np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), **tol)
+        jbatch = jax.vmap(junravel)(jnp.asarray(flats))
+        tbatch = tunravel(torch.from_numpy(flats))
+        np.testing.assert_allclose(tm.fed.logp_batch(tbatch).numpy(),
+                                   np.asarray(jm.fed.logp_batch(jbatch)), **tol)
+        np.testing.assert_allclose(tm.fed.per_shard_logps(tp).numpy(),
+                                   np.asarray(jm.fed.per_shard_logps(jp)), **tol)
+        jfv, jfg = jm.fed.logp_and_grad(jp)
+        tfv, tfg = tm.fed.logp_and_grad(tp)
+        np.testing.assert_allclose(tfv.numpy(), np.asarray(jfv), **tol)
+        for k in jfg:
+            np.testing.assert_allclose(tfg[k].numpy(), np.asarray(jfg[k]), **tol)
