@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only samplers  # device, build, nuts, wide_logistic,
                                            # logistic, chees
     python3 chip_smoke.py --only slice6    # device, build, lgssm, gp, tempering
+    python3 chip_smoke.py --only slice7    # device, build, families, model_check
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -37,18 +38,20 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    leaf is one batched evaluation of the four chains, and one kernel
    launch (the phase counts both; they must be equal).
 6. ``nuts_large`` — the same at 8 x 131,072 observations, so the kernel
-   moves real bytes on every leapfrog step: 1 chain x 600 warmup + 600
+   moves real bytes on every leapfrog step: 1 chain x 300 warmup + 300
    draws with a dense mass matrix.  At this size the data pin every
    shard's intercept + offset to ~0.0014 while only the offsets' prior
    places the intercept (sd ~0.1): a ridge ~70x longer than it is wide.
-   With a diagonal mass or a short warmup, the split R-hat of the
-   intercept and offsets lands above 1.05 for many seeds (as with the
-   JAX package's sampler on this posterior); a dense mass adapted over
-   600 warmup draws straightens the ridge.  Even then the draws move
-   slowly along it: with 300 draws the split R-hat of the intercept and
-   offsets varies around 1.05 from one trajectory to the next (a change
-   in the last bits of a sum is enough to move it across), so the phase
-   takes 600 (with 900 its split R-hat read 1.029 on an H100).
+   With a diagonal mass, the split R-hat of the intercept and offsets
+   lands above 1.05 for many seeds (as with the JAX package's sampler on
+   this posterior); a dense mass adapted over the warmup straightens the
+   ridge.  Even then the draws move slowly along it: with 300 draws the
+   split R-hat of the intercept and offsets varies around 1.05 from one
+   trajectory to the next (a change in the last bits of a sum is enough
+   to move it across; with 600 + 600 it read 1.011, with 900 draws
+   1.029 on an H100).  The run was 600 + 600 until the families and
+   model_check phases needed its time; PERF.md records each run's
+   R-hat.
 7. ``federated`` — the federation wire.  The kernel is built above,
    before any node starts.  Four node processes (``spawn``) each rebuild
    shards {2i, 2i+1} of the flagship data from its seed, on the card,
@@ -60,14 +63,16 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    evaluation (median of 100) at 8 x 64 and 8 x 131,072, fanned out and
    with the nodes called in turn; splits one request's time into wire
    and node from the spans the nodes ship back (spans on for that short
-   run only); and runs NUTS over the wire at 8 x 64, 1 chain x 300
-   warmup + 300 draws, whose means must also lie within 4 combined MCSEs
+   run only); and runs NUTS over the wire at 8 x 64, 1 chain x 150
+   warmup + 150 draws, whose means must also lie within 4 combined MCSEs
    of the nuts phase's.  Each node reports its GPU and as many kernel
    launches as requests.
 8. ``radon`` — BASELINE.json config 3 (the hierarchical radon GLM, 16
    county shards) on the card: value and gradient at three points against
    the same model in float64 on the CPU; ms per logp+grad evaluation
-   (median of 50); NUTS, 1 chain x 300 warmup + 200 draws, with finite
+   (median of 50); NUTS, 1 chain x 300 warmup + 200 draws, its
+   evaluation replayed from a CUDA graph (``cuda_graph=True``: the eager
+   run's draws, bit for bit, without its host dispatch), with finite
    draws, divergence share < 0.1, |median beta - truth| < 0.3 (the JAX
    package's test gate) and split R-hat < 1.1.
 9. ``logistic`` — config 5 (64 shards x 64 observations x 8 features):
@@ -126,7 +131,32 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    batched evaluations and CUDA launches per iteration; gates PT balance
    < 0.3 and the NUTS control's > 0.35 (bench_suite.py:1555-1558).
 
-Phases 8-15 launch no kernel of the port: the JAX package computes
+16. ``families`` — every GLM family of the port at config 5's shard
+   layout, 64 shards x 64 observations x 8 features (bench_suite.py:750):
+   Poisson, NB2, ZIP, ZINB, Student-t, Gamma, ordinal (5 categories),
+   softmax (4 classes; raw and sufficient-statistic forms), hierarchical
+   softmax and Weibull AFT, each from its own generator, and the Gaussian
+   mixture (3 components) at 64 shards x 128: value and gradient at three
+   points against the same model in float64 on the CPU (where float32
+   itself misses the tolerance at a point, within twice the error of the
+   model in float32 on the CPU there); ms (median of 30) and CUDA
+   launches per logp+grad; the softmax forms behind bench.py's equality
+   gate.
+17. ``model_check`` — the JAX package's count-family comparison
+   (tests/test_model_comparison.py:92) at width 8:
+   ``generate_zi_count_data(16, n_obs=256, n_features=8, pi=0.35,
+   seed=5)``; Poisson, NB2, ZIP and ZINB each fit by NUTS, 4 chains x 150
+   warmup + 150 draws in lockstep; pointwise log-likelihoods (padding
+   dropped), PSIS-LOO, WAIC and ``compare``; the top family's posterior
+   predictive from 200 draws, its simulated share of zeros beside the
+   observed one; the Laplace approximation of ZINB beside its NUTS
+   posterior.  Gates: split R-hat < 1.05 on ZIP's and ZINB's slopes and
+   own parameters and < 1.2 on their intercept hierarchy (see
+   ``RHAT_HIERARCHY``); a zero-inflated family ranks first; Poisson's
+   ``d_elpd`` beyond 2 of its ``d_se``; the observed share of zeros
+   inside the predictive's central 90%; finite draws.
+
+Phases 8-17 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
@@ -134,7 +164,8 @@ device line.  With ``--only kernels`` it stops after the kernels phase,
 with ``--only federated`` it runs the nuts and federated phases only,
 with ``--only models`` the radon, logistic and lv_ode phases only, with
 ``--only samplers`` the nuts, wide_logistic, logistic and chees phases
-only, with ``--only slice6`` the lgssm, gp and tempering phases only;
+only, with ``--only slice6`` the lgssm, gp and tempering phases only,
+with ``--only slice7`` the families and model_check phases only;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -194,12 +225,14 @@ TRUE = {"intercept": 1.5, "slope": 2.0, "sigma": 0.5}
 # timed at both sizes, NUTS over the wire at the flagship size.  Four
 # node processes share the one card, and an evaluation over the wire
 # costs ~3x one in process: 2 chains x 300 + 300 took 307 s, so the phase
-# runs 1 chain x 300 warmup + 300 draws and times 100 calls per mode, to
+# runs 1 chain x 150 warmup + 150 draws (300 + 300 until the families and
+# model_check phases needed its time) and times 100 calls per mode, to
 # keep the whole script well inside its time limit.
 FED_NODES = 4
 FED_SIZES = (FLAGSHIP[1], LARGE_PATH[1])
 FED_TIMED_CALLS = 100
-FED_NUTS = (1, 300, 300)  # chains, warmup, draws
+FED_NUTS = (1, 150, 150)  # chains, warmup, draws
+NUTS_LARGE = (1, 300, 300)  # chains, warmup, draws of the nuts_large phase
 
 # BASELINE.json configs 3-5 at bench_suite.py's sizes: radon
 # generate_radon_data(16, seed=12) (bench_suite.py:713); Lotka-Volterra
@@ -997,16 +1030,23 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def _as_f64_cpu(data):
-    """A ``ShardedData`` (or a tensor) as float64 on the CPU: the data of
-    a model's plain float64 version."""
+def _as_cpu(data, dtype=None):
+    """A ``ShardedData``, a params dict or a tensor on the CPU, in
+    ``dtype`` if given (float64: the inputs of a model's plain float64
+    version)."""
     import pytensor_federated_torch as pft
     from pytensor_federated_torch.utils import tree_map
 
+    move = lambda t: t.detach().cpu() if dtype is None else t.detach().cpu().to(dtype)
     if torch.is_tensor(data):
-        return data.detach().cpu().double()
-    return pft.ShardedData(data=tree_map(lambda t: t.cpu().double(), data.data),
-                           mask=data.mask.cpu().double())
+        return move(data)
+    if isinstance(data, dict):
+        return tree_map(move, data)
+    return pft.ShardedData(data=tree_map(move, data.data), mask=move(data.mask))
+
+
+def _as_f64_cpu(data):
+    return _as_cpu(data, torch.float64)
 
 
 def _three_points(init, seed=5):
@@ -1066,9 +1106,11 @@ def _launches(fn, dev, calls):
     return _cuda_launches_per_call(fn, calls)[0] if torch.device(dev).type == "cuda" else None
 
 
-def _model_nuts(model, dev, seed, nuts=MODEL_NUTS, jitter=1.0):
+def _model_nuts(model, dev, seed, nuts=MODEL_NUTS, jitter=1.0, cuda_graph=False):
     """NUTS on ``model.logp`` with gradient evaluations (of the chain
-    batch) counted; the run's draws, wall time, stats and min-ESS/s."""
+    batch) counted; the run's draws, wall time, stats and min-ESS/s.
+    With ``cuda_graph`` the evaluations replayed from the graph count
+    too (beside the eager ones: the graph's warm-up and capture)."""
     import pytensor_federated_torch as pft
 
     grad_evals = 0
@@ -1083,9 +1125,12 @@ def _model_nuts(model, dev, seed, nuts=MODEL_NUTS, jitter=1.0):
     _sync(dev)
     t0 = time.perf_counter()
     res = pft.samplers.sample(counted, model.init_params(), generator=gen, num_warmup=warmup,
-                              num_samples=draws, num_chains=chains, jitter=jitter)
+                              num_samples=draws, num_chains=chains, jitter=jitter,
+                              cuda_graph=cuda_graph)
     _sync(dev)
     wall = time.perf_counter() - t0
+    if cuda_graph:
+        grad_evals += res.extra["graph_replays"]
     s = res.samples
     max_rhat = max(float(v.max()) for v in pft.samplers.split_rhat(s).values())
     min_ess = min(float(v.min()) for v in pft.samplers.effective_sample_size(s).values())
@@ -1113,7 +1158,9 @@ def phase_radon(dev="cuda", nuts=MODEL_NUTS):
     p = model.init_params()
     ms = _ms_per_eval(lambda: model.logp_and_grad(p), dev, 50)
     launches = _launches(lambda: model.logp_and_grad(p), dev, 10)
-    res, run = _model_nuts(model, dev, seed=11, nuts=nuts)
+    graph = torch.device(dev).type == "cuda"
+    res, run = _model_nuts(model, dev, seed=11, nuts=nuts, cuda_graph=graph)
+    run["cuda_graph"] = graph
     beta_median = float(res.samples["beta"].median())
     run["beta_median"], run["beta_true"] = beta_median, true["beta"]
     ok = (values_ok and run["finite"] and run["divergence_share"] < 0.1
@@ -1688,14 +1735,309 @@ def phase_tempering(dev="cuda", pt_lengths=PT_LENGTHS, nuts_lengths=NUTS_LENGTHS
     }
 
 
+# Slice 7: the GLM families at config 5's shard layout, 64 shards x 64
+# observations x 8 features (bench_suite.py:750), the widest GLM layout the
+# repo benchmarks; the Gaussian mixture at 64 shards x its generator's 128
+# observations, 3 components.  No kernel: the JAX package computes these
+# families outside Pallas, and so does the port.
+FAMILY_LAYOUT = dict(n_shards=64, n_obs=64, n_features=8)
+MIXTURE_LAYOUT = dict(n_shards=64, n_obs=128)
+FAMILY_TIMED_EVALS = 30
+# The model_check phase: the count-family comparison of the JAX package's
+# tests/test_model_comparison.py:92 at width 8 on zero-inflated data, with
+# config 3's 16 shards; each family fit by NUTS, 4 chains x 150 + 150 in
+# lockstep; the top family's posterior predictive from 200 draws.
+MODEL_CHECK_DATA = dict(n_shards=16, n_obs=256, n_features=8, pi=0.35, seed=5)
+MODEL_CHECK_NUTS = (4, 150, 150)
+MODEL_CHECK_SEED = 1
+MODEL_CHECK_PREDICTIVE_DRAWS = 200
+# Its R-hat gate.  The slopes and each family's own parameters must have
+# mixed (< 1.05).  The intercept hierarchy (b0 + tau * b_raw) is a ridge
+# that 150 + 150 draws do not resolve: the JAX package on the same data
+# reads 1.05-1.10 there (tests/test_torch_model_comparison.py, run as a
+# script), so it is held to bench_suite's < 1.2.
+RHAT_MIXED, RHAT_HIERARCHY = 1.05, 1.2
+HIERARCHY_LEAVES = ("b0", "b_raw", "log_tau")
+
+
+def _family_cases():
+    """(name, class, the function making its data, model kwargs) of each
+    family of the families phase."""
+    from pytensor_federated_torch import models as M
+
+    L = FAMILY_LAYOUT
+    return [
+        ("poisson", M.FederatedPoissonGLM, lambda d: M.generate_count_data(**L, device=d), {}),
+        ("negbin", M.FederatedNegBinGLM,
+         lambda d: M.generate_count_data(**L, dispersion=4.0, device=d), {}),
+        ("zip", M.FederatedZeroInflPoissonGLM,
+         lambda d: M.generate_zi_count_data(**L, pi=0.3, device=d), {}),
+        ("zinb", M.FederatedZeroInflNegBinGLM,
+         lambda d: M.generate_zi_count_data(**L, pi=0.3, dispersion=4.0, device=d), {}),
+        ("robust", M.FederatedRobustRegression, lambda d: M.generate_robust_data(**L, device=d), {}),
+        ("gamma", M.FederatedGammaGLM, lambda d: M.generate_gamma_data(**L, device=d), {}),
+        ("ordinal", M.FederatedOrdinalRegression,
+         lambda d: M.generate_ordinal_data(**L, n_categories=5, device=d), {"n_categories": 5}),
+        ("softmax", M.FederatedSoftmaxRegression,
+         lambda d: M.generate_multinomial_data(**L, n_classes=4, device=d), {"n_classes": 4}),
+        ("softmax_suffstats", M.FederatedSoftmaxRegression,
+         lambda d: M.generate_multinomial_data(**L, n_classes=4, device=d),
+         {"n_classes": 4, "use_suffstats": True}),
+        ("hier_softmax", M.HierarchicalSoftmaxRegression,
+         lambda d: M.generate_hier_multinomial_data(**L, n_classes=4, device=d), {"n_classes": 4}),
+        ("weibull", M.FederatedWeibullAFT, lambda d: M.generate_survival_data(**L, device=d), {}),
+        ("mixture", M.FederatedGaussianMixture,
+         lambda d: M.generate_mixture_data(**MIXTURE_LAYOUT, device=d), {"n_components": 3}),
+    ]
+
+
+def phase_families(dev="cuda", reps=FAMILY_TIMED_EVALS):
+    """Each GLM family and the Gaussian mixture on ``dev``: value and
+    gradient at three points against the same model in float64 on the
+    CPU; ms and CUDA launches per logp+grad; the softmax model's raw and
+    sufficient-statistic forms behind bench.py's equality gate."""
+    from pytensor_federated_torch.samplers.util import ravel
+
+    rows, ok, datasets = {}, True, {}
+    for name, cls, build, kw in _family_cases():
+        base = name.replace("_suffstats", "")  # the two softmax forms share data
+        if base not in datasets:
+            datasets[base] = build(dev)[0]
+        data = datasets[base]
+        model = cls(data, **kw)
+        model64 = cls(_as_f64_cpu(data), **kw)
+        points = _three_points(model.init_params())
+        values_ok, values = _against_f64(model, model64, points)
+        # Where float32 arithmetic itself misses the gate (the Student-t's
+        # nu-gradient at nu ~ 670 is a difference of digammas that cancels
+        # to ~1e-3 of its terms), the card must land within twice the error
+        # of the same model in float32 on the CPU at that point.
+        _, cpu32 = _against_f64(cls(_as_cpu(data), **kw), model64,
+                                {k: _as_cpu(v) for k, v in points.items()})
+        for card, ref in zip(values, cpu32):
+            card["cpu_f32_value_rel_err"] = ref["value_rel_err"]
+            card["cpu_f32_grad_err_over_tol"] = ref["grad_err_over_tol"]
+            if not card["ok"] and not ref["ok"] and math.isfinite(card["logp"]):
+                card["ok"] = (card["grad_err_over_tol"] <= 2 * ref["grad_err_over_tol"]
+                              and card["value_rel_err"] <= max(
+                                  MODEL_VALUE_RTOL, 2 * ref["value_rel_err"]))
+                card["gate"] = "within 2x the CPU float32 error"
+        values_ok = all(v["ok"] for v in values)
+        p = model.init_params()
+        row = {
+            "class": cls.__name__, **kw,
+            "size": {"shards": data.n_shards, "max_obs": data.max_len,
+                     "observations": int(data.mask.sum()),
+                     "params": sum(t.numel() for t in p.values())},
+            "values": values,
+            "ms_per_logp_and_grad": _ms_per_eval(lambda: model.logp_and_grad(p), dev, reps),
+            "cuda_launches_per_logp_and_grad": _launches(lambda: model.logp_and_grad(p), dev, 5),
+            "ok": values_ok,
+        }
+        if name == "softmax_suffstats":
+            raw = cls(data, n_classes=kw["n_classes"])
+            flat0, unravel = ravel(p)
+            gate = []
+            for pname, x in (("x0", flat0), ("x0+0.1*arange", flat0 + 0.1 * torch.arange(
+                    flat0.shape[0], dtype=flat0.dtype, device=flat0.device))):
+                g_ok, err = _flat_close(model.logp_and_grad(unravel(x)),
+                                        raw.logp_and_grad(unravel(x)))
+                gate.append({"point": pname, **err, "ok": g_ok})
+                row["ok"] &= g_ok
+            row["equality_gate_vs_raw"] = gate
+        rows[name] = row
+        ok &= row["ok"]
+    return ok, {
+        "phase": "families",
+        "layout": {"glm": {**FAMILY_LAYOUT, "source": "config 5, bench_suite.py:750"},
+                   "mixture": {**MIXTURE_LAYOUT, "components": 3,
+                               "source": "generate_mixture_data's n_obs"}},
+        "tolerance": {"value_rtol": MODEL_VALUE_RTOL, "grad_rtol": MODEL_GRAD_RTOL,
+                      "grad_atol": f"{MODEL_GRAD_ATOL_OF_MAX} x max|grad of the leaf|",
+                      "against": "the same model in float64 on the CPU",
+                      "softmax_forms": {"value_rtol": AUTOGRAD_RTOL_VALUE,
+                                        "grad_rtol": AUTOGRAD_RTOL_GRAD,
+                                        "grad_atol": AUTOGRAD_ATOL_GRAD,
+                                        "source": "bench.py's equality gate"}},
+        "families": rows,
+        "gates": "every family's values against float64 (or within 2x the CPU float32 "
+                 "error where float32 misses the tolerance); softmax suffstats == raw",
+    }
+
+
+def _zero_share(y, keep):
+    return (y[..., keep] == 0).double().mean(-1)
+
+
+MODEL_CHECK_FAMILIES = {"poisson": "FederatedPoissonGLM", "negbin": "FederatedNegBinGLM",
+                        "zip": "FederatedZeroInflPoissonGLM", "zinb": "FederatedZeroInflNegBinGLM"}
+
+
+def _model_check_data(data_kw, dev):
+    from pytensor_federated_torch import models as M
+
+    kw = dict(data_kw)
+    return M.generate_zi_count_data(kw.pop("n_shards"), **kw, device=dev)[0]
+
+
+def _model_check_fit(name, data_kw, nuts, dev, conn):
+    """One family's fit in a process of its own: the data rebuilt from
+    the seed on ``dev``, NUTS, the pointwise log-likelihood matrix
+    (padding dropped) and the split R-hat of each leaf, sent back on
+    ``conn`` with the draws."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from pytensor_federated_torch import models as M
+        from pytensor_federated_torch import samplers as S
+
+        if torch.device(dev).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"the {name} fit found no GPU")
+        torch.set_num_threads(1)  # four fits share the host's cores
+        data = _model_check_data(data_kw, dev)
+        m = getattr(M, MODEL_CHECK_FAMILIES[name])(data)
+        res, run = _model_nuts(m, dev, seed=MODEL_CHECK_SEED, nuts=nuts,
+                               cuda_graph=torch.device(dev).type == "cuda")
+        run["cuda_graph"] = torch.device(dev).type == "cuda"
+        t0 = time.perf_counter()
+        ll = S.pointwise_loglik_matrix(m.pointwise_loglik, res.samples, mask=data.mask)
+        run["loglik_matrix_s"] = time.perf_counter() - t0
+        conn.send({"name": name, "run": run, "ll": ll,
+                   "rhat": {k: float(v.max()) for k, v in S.split_rhat(res.samples).items()},
+                   "samples": {k: v.cpu().numpy() for k, v in res.samples.items()},
+                   "device": torch.cuda.get_device_name() if torch.cuda.is_available() else dev})
+    except Exception:
+        conn.send({"name": name, "error": traceback.format_exc()})
+    finally:
+        conn.close()
+
+
+def phase_model_check(dev="cuda", nuts=MODEL_CHECK_NUTS, data_kw=MODEL_CHECK_DATA,
+                      predictive_draws=MODEL_CHECK_PREDICTIVE_DRAWS, timeout=900.0):
+    """The model-checking workflow on ``dev``: Poisson, NB2, ZIP and ZINB
+    fit by NUTS to zero-inflated counts; pointwise log-likelihoods, PSIS-LOO,
+    WAIC and the ranking; the top family's posterior predictive share of
+    zeros against the observed one; the Laplace approximation of ZINB
+    beside its NUTS posterior.
+
+    The four fits are independent, and each is bound by its host thread
+    (eager dispatch, ~100-180 launches per evaluation, the card idle most
+    of the time), so each runs in a process of its own (``spawn``), all
+    four at once on the one card, as a modeller would fit competing
+    models; the ranking, the predictive and Laplace run here after."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from pytensor_federated_torch import models as M
+    from pytensor_federated_torch import samplers as S
+
+    ctx = mp.get_context("spawn")
+    procs, conns = [], {}
+    t0 = time.perf_counter()
+    try:
+        for name in MODEL_CHECK_FAMILIES:
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_model_check_fit, args=(name, data_kw, nuts, dev, child),
+                               daemon=True)
+            proc.start()
+            procs.append(proc)
+            conns[name] = parent
+        replies = {}
+        for name, conn in conns.items():
+            if not conn.poll(max(1.0, timeout - (time.perf_counter() - t0))):
+                raise RuntimeError(f"the {name} fit did not answer within {timeout} s")
+            replies[name] = conn.recv()
+            if "error" in replies[name]:
+                raise RuntimeError(f"the {name} fit failed:\n{replies[name]['error']}")
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    fits_s = time.perf_counter() - t0
+
+    data = _model_check_data(data_kw, dev)
+    (_X, y), mask = data.tree()
+    keep = mask > 0
+    obs_zero = float(_zero_share(y, keep))
+    lls = {name: r["ll"] for name, r in replies.items()}
+    rhat = {name: r["rhat"] for name, r in replies.items()}
+    fits = {}
+    for name, r in replies.items():
+        loo, w = S.psis_loo(lls[name]), S.waic(lls[name])
+        fits[name] = {"nuts": r["run"], "device": r["device"], "split_rhat": rhat[name],
+                      "elpd_loo": loo["elpd_loo"], "p_loo": loo["p_loo"], "se": loo["se"],
+                      "n_bad_k": loo["n_bad_k"], "elpd_waic": w["elpd_waic"],
+                      "p_waic": w["p_waic"], "loglik_matrix": list(lls[name].shape)}
+    rows = S.compare(lls)
+    top = rows[0]["model"]
+    samples = {name: {k: torch.as_tensor(v, device=dev) for k, v in r["samples"].items()}
+               for name, r in replies.items()}
+    models = {name: getattr(M, cls)(data) for name, cls in MODEL_CHECK_FAMILIES.items()}
+    t1 = time.perf_counter()
+    sims = S.posterior_predictive(models[top].predictive, samples[top],
+                                  torch.Generator(device=dev).manual_seed(2),
+                                  num_draws=predictive_draws)
+    _sync(dev)
+    predictive_s = time.perf_counter() - t1
+    sim_zero = _zero_share(sims, keep).cpu().numpy()
+    t1 = time.perf_counter()
+    zinb = models["zinb"]
+    lap = S.laplace_approximation(zinb.logp, zinb.init_params())
+    laplace_s = time.perf_counter() - t1
+    lap_sd = lap.stddev()
+
+    def nuts_moments(k):
+        d = samples["zinb"][k].reshape(-1, *lap.mode[k].shape)
+        return d.mean(0).reshape(-1).tolist(), d.std(0).reshape(-1).tolist()
+
+    beside = {k: dict(zip(("nuts_mean", "nuts_sd"), nuts_moments(k)),
+                      laplace_mean=lap.mode[k].reshape(-1).tolist(),
+                      laplace_sd=lap_sd[k].reshape(-1).tolist())
+              for k in ("logit_pi", "log_phi", "b0", "w")}
+    by_name = {r["model"]: r for r in rows}
+    lo, hi = np.quantile(sim_zero, [0.05, 0.95])
+    zi = [rhat["zip"], rhat["zinb"]]
+    gates = {
+        "rhat_zi_mixed_below_1.05": all(
+            v < RHAT_MIXED for r in zi for k, v in r.items() if k not in HIERARCHY_LEAVES),
+        "rhat_zi_hierarchy_below_1.2": all(
+            v < RHAT_HIERARCHY for r in zi for k, v in r.items() if k in HIERARCHY_LEAVES),
+        "zero_inflated_first": top in ("zip", "zinb"),
+        "poisson_beyond_2_se": -by_name["poisson"]["d_elpd"] > 2 * by_name["poisson"]["d_se"],
+        "zero_share_in_central_90": bool(lo <= obs_zero <= hi),
+        "finite": all(f["nuts"]["finite"] for f in fits.values()) and bool(
+            torch.isfinite(sims).all()),
+    }
+    return all(gates.values()), {
+        "phase": "model_check",
+        "data": {**data_kw, "observations": int(keep.sum()),
+                 "source": "tests/test_model_comparison.py:92 at width 8, config 3's 16 shards"},
+        "nuts": {"chains": nuts[0], "warmup": nuts[1], "draws": nuts[2], "seed": MODEL_CHECK_SEED},
+        "fits_s": fits_s,
+        "fits": fits,
+        "compare": rows,
+        "predictive": {"family": top, "draws": predictive_draws, "seconds": predictive_s,
+                       "shape": list(sims.shape), "observed_zero_share": obs_zero,
+                       "simulated_zero_share_mean": float(sim_zero.mean()),
+                       "central_90": [float(lo), float(hi)]},
+        "laplace_zinb": {"seconds": laplace_s, "logp_at_mode": lap.logp_at_mode,
+                         "beside_nuts": beside},
+        "gates": gates,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6"],
+    parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
+                                           "slice7"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
                              "wide_logistic, logistic and chees only; slice6: device, build, "
-                             "lgssm, gp and tempering only")
+                             "lgssm, gp and tempering only; slice7: device, build, families "
+                             "and model_check only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1735,7 +2077,7 @@ def main() -> int:
         ("nuts", lambda: phase_nuts("nuts", FLAGSHIP[1], NUTS_CHAINS, 300, 300,
                                     dense_mass=False)),
         ("nuts_large",
-         lambda: phase_nuts("nuts_large", LARGE_PATH[1], 1, 600, 600, dense_mass=True)),
+         lambda: phase_nuts("nuts_large", LARGE_PATH[1], *NUTS_LARGE, dense_mass=True)),
         ("federated", lambda: phase_federated(lines.get("nuts", {}))),
         ("radon", phase_radon),
         ("logistic", phase_logistic),
@@ -1745,6 +2087,8 @@ def main() -> int:
         ("lgssm", phase_lgssm),
         ("gp", phase_gp),
         ("tempering", phase_tempering),
+        ("families", phase_families),
+        ("model_check", phase_model_check),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -1757,6 +2101,8 @@ def main() -> int:
                   if ph[0] in ("nuts", "wide_logistic", "logistic", "chees")]
     elif args.only == "slice6":
         phases = [ph for ph in phases if ph[0] in ("lgssm", "gp", "tempering")]
+    elif args.only == "slice7":
+        phases = [ph for ph in phases if ph[0] in ("families", "model_check")]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()

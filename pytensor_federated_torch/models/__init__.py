@@ -1,7 +1,18 @@
 """Models: the flagship federated linear regression, BASELINE.json's
 radon GLM, Lotka-Volterra ODE and federated logistic regressions, the
-Gaussian processes and the linear-Gaussian state-space models."""
+other GLM families (count, robust, Gamma, ordinal, softmax, survival),
+the Gaussian mixture, the Gaussian processes and the linear-Gaussian
+state-space models."""
 
+from .countdata import (
+    FederatedNegBinGLM,
+    FederatedPoissonGLM,
+    FederatedZeroInflNegBinGLM,
+    FederatedZeroInflPoissonGLM,
+    generate_count_data,
+    generate_zi_count_data,
+)
+from .gamma import FederatedGammaGLM, gamma_logpdf, generate_gamma_data
 from .glm import HierarchicalRadonGLM, generate_radon_data
 from .gp import (
     FederatedExactGP,
@@ -18,12 +29,25 @@ from .logistic import (
     generate_hier_logistic_data,
     generate_logistic_data,
 )
+from .mixture import FederatedGaussianMixture, generate_mixture_data, mixture_loglik
+from .multinomial import (
+    FederatedSoftmaxRegression,
+    HierarchicalSoftmaxRegression,
+    generate_hier_multinomial_data,
+    generate_multinomial_data,
+)
 from .ode import (
     LotkaVolterraModel,
     generate_lv_data,
     make_lv_model,
     rk4_integrate,
 )
+from .ordinal import (
+    FederatedOrdinalRegression,
+    cumulative_logit_loglik,
+    generate_ordinal_data,
+)
+from .robust import FederatedRobustRegression, generate_robust_data, student_t_logpdf
 from .statespace import (
     FederatedLGSSMPanel,
     ekf_logp,
@@ -37,4 +61,9 @@ from .statespace import (
     lgssm_em,
     panel_em,
     sample_latents,
+)
+from .survival import (
+    FederatedWeibullAFT,
+    generate_survival_data,
+    weibull_censored_loglik,
 )

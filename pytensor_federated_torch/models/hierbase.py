@@ -30,6 +30,7 @@ __all__ = [
     "HierarchicalGLMBase",
     "linear_predictor",
     "log_halfnormal_draw",
+    "per_draw",
 ]
 
 
@@ -38,6 +39,13 @@ def log_halfnormal_draw(generator: torch.Generator, scale: float = 1.0) -> torch
     one implementation for log-parameterized scale priors."""
     z = torch.randn((), generator=generator, device=generator.device)
     return torch.log(scale * torch.abs(z) + torch.finfo(torch.float32).tiny)
+
+
+def per_draw(x: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """A per-draw parameter (leading draw axes only; 0-d for one draw)
+    with singleton axes appended so it broadcasts against ``eta``
+    ``(*draws, n_shards, n_obs)``."""
+    return x.reshape(x.shape + (1,) * (eta.ndim - x.ndim))
 
 
 def linear_predictor(X, w, b, compute_dtype=None):
@@ -159,10 +167,20 @@ class HierarchicalGLMBase:
         return self._obs_logpmf(params, y, self._eta(params)) * mask
 
     def predictive(self, params: Any, generator: torch.Generator) -> torch.Tensor:
-        """Simulate one replicated dataset ``(n_shards, n_obs)`` from the
-        observation model at ``params`` (padded slots zeroed)."""
+        """Simulate replicated data ``(*draws, n_shards, n_obs)`` from the
+        observation model at ``params`` (padded slots zeroed).
+
+        ``params`` may carry leading draw axes on every leaf (as
+        :func:`..samplers.predictive.posterior_predictive` passes them):
+        the linear predictor is mapped over them with ``torch.func.vmap``
+        and the observations are drawn for all draws at once from the one
+        ``generator``, since every family's ``_sample_obs`` is
+        elementwise (its per-draw parameters go through :func:`per_draw`)."""
+        eta_fn = self._eta
+        for _ in range(params["log_tau"].ndim):
+            eta_fn = torch.func.vmap(eta_fn)
         mask = self.data.tree()[1]
-        return self._sample_obs(params, generator, self._eta(params)) * mask
+        return self._sample_obs(params, generator, eta_fn(params)) * mask
 
     def _sample_extra_params(self, generator) -> dict:
         """Family-specific extra parameter draws (override to match any

@@ -168,6 +168,45 @@ def make_batch_logp_and_grad(
     return lg
 
 
+def graph_batch_logp_and_grad(lg: Callable, example: torch.Tensor) -> Callable:
+    """``lg`` (a chain batch's value+grad) captured once in a CUDA graph
+    for inputs shaped like ``example`` and replayed on every call.
+
+    A replay runs the kernels of ``lg`` on the new inputs' values (the
+    same bits as ``lg`` where those kernels are deterministic), without
+    the host dispatch of every operation:
+    eager, a GLM family's batched evaluation is ~100-180 launches, each
+    ~20-30 µs of host time; a replay is one launch.  Calls with another
+    shape or dtype run ``lg`` itself.  ``replay.calls`` counts the
+    replays.  Needs CUDA, and an ``lg`` with no host sync and no
+    data-dependent shape (the capture refuses both); the linreg kernel's
+    launch counter, a host-side count, would see only the capture."""
+    if example.device.type != "cuda":
+        raise ValueError("cuda_graph=True needs the chains on a CUDA device")
+    static_x = example.detach().clone()
+    stream = torch.cuda.current_stream(example.device)
+    side = torch.cuda.Stream(device=example.device)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        for _ in range(3):  # autograd and the allocator settle before the capture
+            lg(static_x)
+    stream.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_v, static_g = lg(static_x)
+
+    def replay(x):
+        if x.shape != static_x.shape or x.dtype != static_x.dtype:
+            return lg(x)
+        static_x.copy_(x)
+        graph.replay()
+        replay.calls += 1
+        return static_v.clone(), static_g.clone()
+
+    replay.calls = 0
+    return replay
+
+
 def make_kernel_step(
     lg: Callable, kernel: str, *, max_depth: int = 8, num_hmc_steps: int = 16
 ):
@@ -260,6 +299,7 @@ def sample(
     jitter: float = 1.0,
     logp_and_grad_fn: Optional[Callable] = None,
     dense_mass: bool = False,
+    cuda_graph: bool = False,
 ) -> SampleResult:
     """Run adaptive MCMC against ``logp_fn`` (params tree -> scalar).
 
@@ -276,6 +316,12 @@ def sample(
     random numbers of every chain at once.  Chain ``c``'s draws therefore
     depend on ``num_chains`` (in the JAX package they do not: each chain
     has its own key).
+
+    ``cuda_graph=True`` (NUTS and HMC on CUDA) captures the chain batch's
+    value+grad once in a CUDA graph and replays it for every evaluation
+    (:func:`graph_batch_logp_and_grad`): the same evaluations with their
+    host dispatch gone; ``result.extra`` then
+    holds ``{"graph_replays": n}``, the batched evaluations replayed.
     """
     flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(logp_fn, init_params)
     dtype, device = flat_init.dtype, flat_init.device
@@ -294,6 +340,8 @@ def sample(
                 _record_run("metropolis", device, t0, num_chains, num_warmup, num_samples)
         return result
     lg = make_batch_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
+    if cuda_graph:
+        lg = graph_batch_logp_and_grad(lg, init_flat)
     kernel_step = make_kernel_step(
         lg, kernel, max_depth=max_depth, num_hmc_steps=num_hmc_steps
     )
@@ -326,6 +374,7 @@ def sample(
             stats={k: torch.stack(v, dim=1) for k, v in stats.items()},
             step_size=warm.step_size,
             inv_mass=warm.inv_mass,
+            extra={"graph_replays": lg.calls} if cuda_graph else None,
         )
         if _tspans.enabled():
             _record_run(kernel, device, t0, num_chains, num_warmup, num_samples)

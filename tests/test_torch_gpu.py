@@ -506,3 +506,128 @@ def test_tempering_on_the_card_matches_float64_on_the_cpu():
                                  num_warmup=20, num_samples=20, num_temps=8, beta_min=0.01)
     assert res.samples["x"].device.type == "cuda" and tuple(res.samples["x"].shape) == (2, 20, dim)
     assert bool(torch.isfinite(res.samples["x"]).all())
+
+
+# ---- the GLM families and the Gaussian mixture ----
+
+FAMILIES = ["poisson", "negbin", "zip", "zinb", "robust", "gamma", "ordinal", "softmax",
+            "softmax_suffstats", "hier_softmax", "weibull", "mixture"]
+
+
+def _family_data(name, dev):
+    """(data, model kwargs) of a family at 8 shards x 64 obs x 4 features."""
+    from pytensor_federated_torch import models as M
+
+    L = dict(n_shards=8, n_obs=64, n_features=4, device=dev)
+    if name in ("poisson", "negbin"):
+        return M.generate_count_data(**L, dispersion=4.0 if name == "negbin" else None)[0], {}
+    if name in ("zip", "zinb"):
+        return M.generate_zi_count_data(**L, dispersion=4.0 if name == "zinb" else None)[0], {}
+    if name == "robust":
+        return M.generate_robust_data(**L)[0], {}
+    if name == "gamma":
+        return M.generate_gamma_data(**L)[0], {}
+    if name == "ordinal":
+        return M.generate_ordinal_data(**L, n_categories=5)[0], {"n_categories": 5}
+    if name.startswith("softmax"):
+        kw = {"n_classes": 4, "use_suffstats": name == "softmax_suffstats"}
+        return M.generate_multinomial_data(**L, n_classes=4)[0], kw
+    if name == "hier_softmax":
+        return M.generate_hier_multinomial_data(**L, n_classes=4)[0], {"n_classes": 4}
+    if name == "weibull":
+        return M.generate_survival_data(**L)[0], {}
+    return M.generate_mixture_data(8, n_obs=128, device=dev)[0], {"n_components": 3}
+
+
+def _family_class(name):
+    from pytensor_federated_torch import models as M
+
+    return {"poisson": M.FederatedPoissonGLM, "negbin": M.FederatedNegBinGLM,
+            "zip": M.FederatedZeroInflPoissonGLM, "zinb": M.FederatedZeroInflNegBinGLM,
+            "robust": M.FederatedRobustRegression, "gamma": M.FederatedGammaGLM,
+            "ordinal": M.FederatedOrdinalRegression, "softmax": M.FederatedSoftmaxRegression,
+            "softmax_suffstats": M.FederatedSoftmaxRegression,
+            "hier_softmax": M.HierarchicalSoftmaxRegression, "weibull": M.FederatedWeibullAFT,
+            "mixture": M.FederatedGaussianMixture}[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_on_the_card_matches_float64_on_the_cpu(name):
+    """Value within rtol 1e-5, gradient within 1e-4 |g| + 1e-5 max|g of
+    the leaf|, pointwise log-likelihoods within rtol 1e-5 + 1e-5
+    max|ll| (the models' tolerances above); predictive draws on the card
+    are finite, shaped like the data and zero on padding."""
+    dev = _cuda()
+    data, kw = _family_data(name, dev)
+    cls = _family_class(name)
+    model, model64 = cls(data, **kw), cls(_f64_cpu(data), **kw)
+    for p in _points(model.init_params()):
+        v, g = model.logp_and_grad(p)
+        p64 = {k: t.cpu().double() for k, t in p.items()}
+        v64, g64 = model64.logp_and_grad(p64)
+        assert v.device.type == "cuda"
+        np.testing.assert_allclose(float(v), float(v64), rtol=1e-5)
+        for k in g64:
+            err = (g[k].cpu().double() - g64[k]).abs()
+            assert torch.all(err <= 1e-4 * g64[k].abs() + 1e-5 * g64[k].abs().max()), k
+        pw, pw64 = model.pointwise_loglik(p).cpu().double(), model64.pointwise_loglik(p64)
+        assert torch.all((pw - pw64).abs() <= 1e-5 * pw64.abs() + 1e-5 * pw64.abs().max())
+    sims = model.predictive(model.init_params(), torch.Generator(device=dev).manual_seed(0))
+    assert sims.device.type == "cuda" and sims.shape == data.mask.shape
+    assert bool(torch.isfinite(sims).all())
+    if not name.startswith("softmax"):  # the flat softmax labels every row
+        assert bool((sims[data.mask == 0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_without_cuda_and_without_cpu_raises(name, monkeypatch):
+    """No entry point carries on quietly on the CPU: without CUDA, data
+    for a family are made only when the caller passes ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _family_data(name, None)
+    data, kw = _family_data(name, "cpu")
+    assert _family_class(name)(data, **kw).logp(
+        _family_class(name)(data, **kw).init_params()).device.type == "cpu"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["zinb", "ordinal", "hier_softmax", "mixture", "radon"])
+def test_cuda_graph_evaluation_equals_eager(name):
+    """The chain batch's value+grad replayed from a CUDA graph gives the
+    eager evaluation's bits at new inputs, and a NUTS run with
+    ``cuda_graph=True`` gives the eager run's draws (radon: one chain,
+    the path that skips vmap)."""
+    from pytensor_federated_torch.samplers.mcmc import (
+        graph_batch_logp_and_grad,
+        make_batch_logp_and_grad,
+        make_flat_logp_and_grad,
+        sample,
+    )
+
+    import pytensor_federated_torch as pft
+
+    dev = _cuda()
+    if name == "radon":
+        model, chains = pft.HierarchicalRadonGLM(pft.generate_radon_data(16, seed=12, device=dev)[0]), 1
+    else:
+        data, kw = _family_data(name, dev)
+        model, chains = _family_class(name)(data, **kw), 4
+    flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(model.logp, model.init_params())
+    lg = make_batch_logp_and_grad(flat_logp, unravel)
+    graphed = graph_batch_logp_and_grad(lg, flat_init.expand(chains, -1))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(3):
+        x = flat_init + 0.3 * torch.randn((chains,) + tuple(flat_init.shape), generator=gen,
+                                          device=dev)
+        (v, g), (gv, gg) = lg(x), graphed(x)
+        assert torch.equal(v, gv) and torch.equal(g, gg)
+    assert graphed.calls == 3
+    runs = [sample(model.logp, model.init_params(), generator=torch.Generator(device=dev).manual_seed(3),
+                   num_warmup=20, num_samples=10, num_chains=chains, cuda_graph=flag)
+            for flag in (False, True)]
+    assert runs[0].extra is None and runs[1].extra["graph_replays"] > 0
+    for k in runs[0].samples:
+        assert torch.equal(runs[0].samples[k], runs[1].samples[k]), k
