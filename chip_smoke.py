@@ -9,6 +9,7 @@
                                            # logistic, chees
     python3 chip_smoke.py --only slice6    # device, build, lgssm, gp, tempering
     python3 chip_smoke.py --only slice7    # device, build, families, model_check
+    python3 chip_smoke.py --only slice8    # device, build, nuts, federated, pool
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -34,7 +35,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    the flagship size against plain autograd and the sufficient-statistic
    form, at the origin and at a perturbed point; double backward raises.
 5. ``nuts``    — ``sample()`` with NUTS on the flagship posterior through
-   the kernel, 4 chains x 300 warmup + 300 draws in lockstep: every
+   the kernel, 4 chains x 250 warmup + 250 draws in lockstep: every
    leaf is one batched evaluation of the four chains, and one kernel
    launch (the phase counts both; they must be equal).
 6. ``nuts_large`` — the same at 8 x 131,072 observations, so the kernel
@@ -60,14 +61,37 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    ``ParallelLogpGrad`` and adds the prior.  It checks the remote value
    and gradient against the in-process ones on the card at 8 x 131,072
    (three points, the autograd phase's tolerance); times a remote
-   evaluation (median of 100) at 8 x 64 and 8 x 131,072, fanned out and
+   evaluation (median of 50) at 8 x 64 and 8 x 131,072, fanned out and
    with the nodes called in turn; splits one request's time into wire
    and node from the spans the nodes ship back (spans on for that short
    run only); and runs NUTS over the wire at 8 x 64, 1 chain x 150
    warmup + 150 draws, whose means must also lie within 4 combined MCSEs
    of the nuts phase's.  Each node reports its GPU and as many kernel
    launches as requests.
-8. ``radon`` — BASELINE.json config 3 (the hierarchical radon GLM, 16
+8. ``pool`` — the replica pool and the colocated lanes.  Eight node
+   processes (``spawn``), two replicas per group of shards {2g, 2g+1}:
+   groups 0-1 serve one replica over shm (``serve_shm``) and one over
+   ring (``serve_ring``), groups 2-3 one over shm and one over TCP; each
+   node serves ``device_compute_fn(..., batched=True)`` over the kernel
+   and runs the HTTP exporter.  The driver (on the CPU) holds one
+   ``NodePool`` per group (p2c, a running probe thread) behind a
+   ``PooledArraysClient``, fanned out by ``ParallelLogpGrad``.  Gates:
+   the federated phase's values at 8 x 131,072 and its NUTS draws (its
+   sha256), bit for bit, while group 0's shm replica is SIGKILLed a
+   third of the way into the run and restarted on its ports; exactly one
+   reply per request; that replica's breaker open, then closed; every
+   replica served before the kill; split R-hat < 1.05; windows of W in
+   {4, 16, 64} requests through ``evaluate_many`` equal to each request
+   alone, bit for bit, with kernel launches equal to the windows each
+   node ran and no fallback; ``MicroBatcher`` over the kernel in the
+   driver, 64 requests at once, one launch per window, bit for bit;
+   a ``FleetCollector`` over the eight exporters whose merged request
+   count equals the nodes' own; a watchdog bundle with a ``fleet``
+   section; and no ``pftpu-arena-*`` file left once the nodes stop.
+   Also printed: ``df`` of the arena directory and the arena size,
+   ``os.cpu_count()``, the futex shim and the ring syscall counts, the
+   critical path of a short traced run and an SLO burn verdict.
+9. ``radon`` — BASELINE.json config 3 (the hierarchical radon GLM, 16
    county shards) on the card: value and gradient at three points against
    the same model in float64 on the CPU; ms per logp+grad evaluation
    (median of 50); NUTS, 1 chain x 300 warmup + 200 draws, its
@@ -75,7 +99,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    run's draws, bit for bit, without its host dispatch), with finite
    draws, divergence share < 0.1, |median beta - truth| < 0.3 (the JAX
    package's test gate) and split R-hat < 1.1.
-9. ``logistic`` — config 5 (64 shards x 64 observations x 8 features):
+10. ``logistic`` — config 5 (64 shards x 64 observations x 8 features):
    the vmapped, sufficient-statistic and flattened forms behind
    bench_suite's equality gate; the vmapped form, its bf16 compute dtype
    and the hierarchical model against float64 on the CPU; ms per
@@ -86,24 +110,24 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    and min-ESS/s; every
    w and b within 4 sd of the generating values, split R-hat < 1.1
    (and bench_suite's < 1.2).
-10. ``lv_ode`` — config 4 (Lotka-Volterra, 8 shards, 128 RK4 steps):
+11. ``lv_ode`` — config 4 (Lotka-Volterra, 8 shards, 128 RK4 steps):
    values against float64 on the CPU; ms (median of 20) and CUDA
    launches (profiler) per logp+grad evaluation; ``find_map`` for 50
    steps on the card against 50 steps in float64 on the CPU.  No NUTS:
    an evaluation is launch-bound at tens of ms.
-11. ``wide_logistic`` — config 7 (bench_suite.py:878): the logistic
+12. ``wide_logistic`` — config 7 (bench_suite.py:878): the logistic
    regression at 8 shards x 4,096 observations x 512 features (X is 64
    MiB), 64 chains at init + 0.01 N(0, 1), one batched value+grad per
    form (float32 with TF32 off, bf16 compute dtype, float32_strict),
    each chain's value and gradient against the strict form at
    bench_suite's gates; ms per batched evaluation and its share of the
    matching dense peak.
-12. ``chees`` — config 9 (bench_suite.py:1050): ChEES-HMC on config 5's
+13. ``chees`` — config 9 (bench_suite.py:1050): ChEES-HMC on config 5's
    posterior, 16 chains x 200 warmup + 200 draws, jitter 0.1;
    min-ESS/s against config 8's NUTS of the same run, leapfrog
    gradients/s, the adapted step size and trajectory length; split
    R-hat < 1.2 and finite draws.
-13. ``lgssm`` — config 6 (bench_suite.py:814): the linear-Gaussian
+14. ``lgssm`` — config 6 (bench_suite.py:814): the linear-Gaussian
    state-space model at T = 4,096 (seed 7, d = 2, k = 1): logp+grad of
    the sequential Kalman filter and of the parallel-in-time one (an
    associative scan), float32 with TF32 off; each against the other and
@@ -114,7 +138,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    ~11 s a call), their ratio, CUDA launches and FLOPs per evaluation
    (the sequential form's counted at T = 32 and 64 and extrapolated:
    linear in T).
-14. ``gp`` — config 10 (bench_suite.py:1125): the federated exact GP at 8
+15. ``gp`` — config 10 (bench_suite.py:1125): the federated exact GP at 8
    shards x 256 points against float64 on the CPU (value rtol 1e-4,
    gradient 1e-3 |g| + 1e-4 max|g|), one warm evaluation under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); ms, FLOPs
@@ -123,7 +147,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    gated); the sparse GP with 32 inducing points against float64 (value
    within 1e-4 |logp| + 1e-5 n: a sum of O(n) terms that crosses zero)
    and its ms.
-15. ``tempering`` — config 12 (bench_suite.py:1435): parallel tempering
+16. ``tempering`` — config 12 (bench_suite.py:1435): parallel tempering
    on a 16-sigma bimodal in 8 dimensions, 2 stacks x 8 temperatures, 500
    warmup + 1,000 draws, against NUTS with 4 chains and jitter 5 at the
    same lengths; each run once after a 20-iteration warm-up run; wall,
@@ -131,7 +155,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    batched evaluations and CUDA launches per iteration; gates PT balance
    < 0.3 and the NUTS control's > 0.35 (bench_suite.py:1555-1558).
 
-16. ``families`` — every GLM family of the port at config 5's shard
+17. ``families`` — every GLM family of the port at config 5's shard
    layout, 64 shards x 64 observations x 8 features (bench_suite.py:750):
    Poisson, NB2, ZIP, ZINB, Student-t, Gamma, ordinal (5 categories),
    softmax (4 classes; raw and sufficient-statistic forms), hierarchical
@@ -142,7 +166,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    model in float32 on the CPU there); ms (median of 30) and CUDA
    launches per logp+grad; the softmax forms behind bench.py's equality
    gate.
-17. ``model_check`` — the JAX package's count-family comparison
+18. ``model_check`` — the JAX package's count-family comparison
    (tests/test_model_comparison.py:92) at width 8:
    ``generate_zi_count_data(16, n_obs=256, n_features=8, pi=0.35,
    seed=5)``; Poisson, NB2, ZIP and ZINB each fit by NUTS, 4 chains x 150
@@ -156,7 +180,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    ``d_elpd`` beyond 2 of its ``d_se``; the observed share of zeros
    inside the predictive's central 90%; finite draws.
 
-Phases 8-17 launch no kernel of the port: the JAX package computes
+Phases 9-18 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
@@ -165,7 +189,8 @@ with ``--only federated`` it runs the nuts and federated phases only,
 with ``--only models`` the radon, logistic and lv_ode phases only, with
 ``--only samplers`` the nuts, wide_logistic, logistic and chees phases
 only, with ``--only slice6`` the lgssm, gp and tempering phases only,
-with ``--only slice7`` the families and model_check phases only;
+with ``--only slice7`` the families and model_check phases only, with
+``--only slice8`` the nuts, federated and pool phases only;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -175,8 +200,10 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -226,11 +253,12 @@ TRUE = {"intercept": 1.5, "slope": 2.0, "sigma": 0.5}
 # node processes share the one card, and an evaluation over the wire
 # costs ~3x one in process: 2 chains x 300 + 300 took 307 s, so the phase
 # runs 1 chain x 150 warmup + 150 draws (300 + 300 until the families and
-# model_check phases needed its time) and times 100 calls per mode, to
-# keep the whole script well inside its time limit.
+# model_check phases needed its time) and times 50 calls per mode (100
+# until the pool phase needed its time), to keep the whole script well
+# inside its time limit.
 FED_NODES = 4
 FED_SIZES = (FLAGSHIP[1], LARGE_PATH[1])
-FED_TIMED_CALLS = 100
+FED_TIMED_CALLS = 50
 FED_NUTS = (1, 150, 150)  # chains, warmup, draws
 NUTS_LARGE = (1, 300, 300)  # chains, warmup, draws of the nuts_large phase
 
@@ -255,7 +283,9 @@ MODEL_VALUE_RTOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX = 1e-5, 1e-4, 1e-5
 BF16_VALUE_RTOL, BF16_GRAD_TOL = 2e-2, 5e-2
 # The chain axis of the kernel: C parameter sets against one data set.
 KERNEL_CHAINS = (1, 4, 16, 64)
-NUTS_CHAINS = 4  # the flagship nuts phase, in lockstep
+# The flagship nuts phase, in lockstep: chains, warmup, draws (4 x (300 +
+# 300) until the pool phase needed its time).
+NUTS_FLAGSHIP = (4, 250, 250)
 # Config 8 (bench_suite.py:982): NUTS on config 5, 4 chains x 200 + 200,
 # jitter 0.1, one run with seed 1 (bench_suite's cold run before it is an
 # XLA compile, which the port does not have).
@@ -819,10 +849,24 @@ def _remote_posterior(nodes, n_obs, parallel=True):
     ``parallel=False`` each node is a ``blackbox_logp_grad`` op called in
     turn (the JAX remote demo's ``--sequential``), which shows what a
     node's request costs while the other nodes are idle."""
-    import pytensor_federated_torch as pft
     from pytensor_federated_torch.service import TcpArraysClient
 
     clients = [TcpArraysClient("127.0.0.1", n["ports"][n_obs], timeout_s=120.0) for n in nodes]
+    posterior, close_fan = _posterior_over(clients, parallel)
+
+    def close():
+        close_fan()
+        for c in clients:
+            c.close()
+
+    return posterior, close
+
+
+def _posterior_over(clients, parallel=True):
+    """``(posterior, close)``: prior + the sum of the clients' replies,
+    client i serving shards {2i, 2i+1}, in client order (so any clients
+    that compute the same bits give the same posterior bits)."""
+    import pytensor_federated_torch as pft
 
     def as_logp_grad(client):
         def call(*arrays):
@@ -848,8 +892,6 @@ def _remote_posterior(nodes, n_obs, parallel=True):
     def close():
         if parallel:
             fan.close()
-        for c in clients:
-            c.close()
 
     return posterior, close
 
@@ -926,7 +968,8 @@ def phase_federated(nuts_line, seed=7):
             rv, rg = value_and_grad(remote, unravel(flat))
             lv, lg = value_and_grad(local, unravel(flat.cuda()))
             ok, err = _flat_close((rv, rg), (lv.cpu(), {k: v.cpu() for k, v in lg.items()}))
-            values.append({"point": name, **err, "remote_logp": float(rv), "ok": ok})
+            values.append({"point": name, **err, "remote_logp": float(rv),
+                           "remote_grad": ravel(rg)[0].tolist(), "ok": ok})
             values_ok &= ok
 
         # Time per remote evaluation, then the wire/node split from spans:
@@ -1008,7 +1051,8 @@ def phase_federated(nuts_line, seed=7):
                      "one_launch_per_request": per_request,
                      "mean_tree_depth": float(res.stats["depth"].float().mean()),
                      "divergences": int(res.stats["diverging"].sum()),
-                     "max_split_rhat": max_rhat, "recovered": recovered, "finite": finite},
+                     "max_split_rhat": max_rhat, "recovered": recovered, "finite": finite,
+                     "draws_sha256": _draws_sha256(s)},
         }
     finally:
         for close in closers:
@@ -1023,6 +1067,578 @@ def phase_federated(nuts_line, seed=7):
             if proc.is_alive():
                 proc.kill()
                 proc.join()
+
+
+# The pool phase: 4 groups x 2 replicas (8 node processes), group g
+# owning the federated phase's shards {2g, 2g+1}.  Each group's first
+# replica serves over shm; the second over ring (groups 0-1) or TCP
+# (groups 2-3).  The NUTS run, its draws and its values are the
+# federated phase's: the same kernel on the same shards, summed by the
+# driver in the same order, so they must agree bit for bit.
+POOL_GROUPS = 4
+POOL_SECOND_LANE = ("ring", "ring", "tcp", "tcp")
+POOL_WINDOWS = (4, 16, 64)  # requests per evaluate_many, one window each
+POOL_WINDOW_REPS = 3
+POOL_MAX_BATCH = 64  # a node's padded-bucket ladder reaches one whole window
+POOL_BATCHER_REQUESTS = 64
+POOL_TRACED_EVALS = 16
+# Each shm/ring connection maps two arenas.  tmpfs allocates pages as
+# they are written, but writing past a full /dev/shm raises SIGBUS, not
+# an error: when /dev/shm cannot hold every arena at the default size,
+# the nodes map arenas of POOL_SMALL_ARENA bytes instead (a window of 64
+# requests at 8 x 131,072 writes ~64 x 5 parameter arrays and as many
+# replies, a few tens of kB; the ring's records take 256 kB).
+POOL_SMALL_ARENA = 4 << 20
+POOL_SLO_P99_S = 0.05
+POOL_LANE_CALLS = 200  # timed single requests per lane, at the flagship size
+
+
+def _pool_node(group, lane, sizes, arena_bytes, ports, dev, conn):
+    """One pool replica process.  It owns shards {2 group, 2 group + 1}
+    of ``generate_node_data(8, n_obs, seed=123)`` for each size, rebuilt
+    here from the seed on ``dev``, served by ``device_compute_fn(...,
+    batched=True)`` over the kernel on ``lane`` (one port per size; the
+    given ``ports`` when restarted), with the HTTP exporter beside it; it
+    answers the driver's commands on ``conn``."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import threading
+
+        import numpy as np
+
+        import pytensor_federated_torch as pft
+        from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+        from pytensor_federated_torch.service import (
+            _node_metrics, batching, device_compute_fn, ring, serve_ring, serve_shm, serve_tcp_once,
+        )
+        from pytensor_federated_torch.telemetry import export
+
+        if dev == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"pool node {group}/{lane} found no GPU")
+        ports = dict(ports or {})
+        own = slice(2 * group, 2 * group + 2)
+        window_sizes, computes = [], {}
+        for n_obs in sizes:
+            data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device="cpu")
+            (x, y), mask = data.tree()
+            kern = pft.linreg_logp_grad_fn(*(t[own].to(dev) for t in (x, y, mask)))
+
+            def node_logp_grad(intercept, slope, log_sigma, offsets, kern=kern):
+                logp, g = kern({"intercept": intercept, "slope": slope,
+                                "log_sigma": log_sigma, "offsets": offsets})
+                return logp, (g["intercept"], g["slope"], g["log_sigma"], g["offsets"])
+
+            compute = device_compute_fn(pft.wrap_logp_grad_fn(node_logp_grad), device=dev,
+                                        batched=True, max_batch=POOL_MAX_BATCH)
+
+            def recorded(requests, batch=compute.batch):
+                window_sizes.append(len(requests))  # one window, one kernel launch
+                return batch(requests)
+
+            compute.batch = recorded
+            computes[n_obs] = compute
+        # A process's first vmapped call is slow (~1-2 s): pay it here, in
+        # parallel with the other nodes' start, at every window shape the
+        # windows part sends (a batch frame carries at most 32 requests).
+        probe = (np.float32(1.5), np.float32(2.0), np.float32(-0.7), np.zeros(2, np.float32))
+        for w in sorted({min(w, 32) for w in POOL_WINDOWS}):
+            computes[sizes[-1]].batch([probe] * w)
+        evaluate = _node_metrics.REQUESTS.labels(method="evaluate")
+        kinds = {k: batching._BATCHES.labels(kind=k) for k in ("vmapped", "single", "serial",
+                                                               "fallback")}
+
+        def now():
+            return {"evaluate": evaluate.value, "launches": linreg_reductions.launches,
+                    "sizes": len(window_sizes), **{k: v.value for k, v in kinds.items()}}
+
+        base = now()  # before any port is bound: every request served counts
+        serve, kw = {"shm": (serve_shm, {"arena_bytes": arena_bytes}),
+                     "ring": (serve_ring, {"arena_bytes": arena_bytes}),
+                     "tcp": (serve_tcp_once, {})}[lane]
+        for n_obs, compute in computes.items():
+            bound = threading.Event()
+
+            def on_ready(port, n_obs=n_obs, bound=bound):
+                ports[n_obs] = port
+                bound.set()
+
+            threading.Thread(target=serve, args=(compute,), daemon=True,
+                             kwargs={"port": ports.get(n_obs, 0), "ready_callback": on_ready,
+                                     "concurrent": True, **kw}).start()
+            if not bound.wait(60):
+                raise RuntimeError(f"pool node {group}/{lane} did not bind a port")
+        exporter = export.start_exporter(port=ports.get("exporter", 0))
+        ports["exporter"] = exporter.port
+        conn.send({"group": group, "lane": lane, "ports": ports, "pid": os.getpid(),
+                   "device": torch.cuda.get_device_name() if dev == "cuda" else "cpu",
+                   "cuda": str(compute.device)})
+        while True:
+            cmd = conn.recv()
+            if cmd == "reset":  # counts to 0 just before a drive
+                base = now()
+            cur = now()
+            served = export.snapshot()["metrics"].get("pftpu_server_requests_total", {})
+            conn.send({
+                "requests": int(cur["evaluate"] - base["evaluate"]),
+                "launches": cur["launches"] - base["launches"],
+                "windows": {k: int(cur[k] - base[k]) for k in kinds},
+                "window_sizes": window_sizes[base["sizes"]:],
+                "requests_total": sum(c["value"] for c in served.get("children", [])),
+                "launches_total": linreg_reductions.launches,
+                "syscalls": ring.syscall_counts() if lane == "ring" else None,
+            })
+            if cmd == "stop":
+                exporter.close()
+                return
+    except Exception:
+        conn.send({"error": traceback.format_exc()})
+
+
+def _arena_budget(n_connections):
+    """``(arena_bytes, report)``: the default arena size when /dev/shm
+    can hold every connection's two arenas at it, else the small one."""
+    from pytensor_federated_torch.service.arena import DEFAULT_ARENA_BYTES, arena_dir
+
+    where = arena_dir()
+    df = subprocess.run(["df", "-B1", where], capture_output=True, text=True, timeout=30).stdout
+    free = os.statvfs(where)
+    avail = free.f_bavail * free.f_frsize
+    need = 2 * n_connections * DEFAULT_ARENA_BYTES
+    arena_bytes = DEFAULT_ARENA_BYTES if avail >= 2 * need else POOL_SMALL_ARENA
+    return arena_bytes, {"arena_dir": where, "df": df.strip().splitlines()[-1:], "avail_bytes": avail,
+                         "connections": n_connections, "default_need_bytes": need,
+                         "arena_bytes": arena_bytes}
+
+
+def _arena_files(since):
+    from pytensor_federated_torch.service.arena import arena_dir
+
+    out = []
+    for p in Path(arena_dir()).glob("pftpu-arena-*"):
+        try:
+            if p.stat().st_mtime >= since:
+                out.append(p.name)
+        except FileNotFoundError:
+            pass
+    return out
+
+
+def _lane_client(lane, port):
+    from pytensor_federated_torch.service import RingArraysClient, ShmArraysClient, TcpArraysClient
+
+    cls = {"shm": ShmArraysClient, "ring": RingArraysClient, "tcp": TcpArraysClient}[lane]
+    return cls("127.0.0.1", port, timeout_s=120.0)
+
+
+def _median_ms(fn, calls, warm=10):
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(calls):
+        ts = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - ts)
+    return statistics.median(times) * 1e3
+
+
+def _flat_bits(value, grads):
+    from pytensor_federated_torch.samplers.util import ravel
+
+    return [float(value)] + ravel(grads)[0].tolist()
+
+
+def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POOL_WINDOWS, seed=7):
+    import asyncio
+    import multiprocessing as mp
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.routing import NodePool, PooledArraysClient
+    from pytensor_federated_torch.samplers.util import ravel
+    from pytensor_federated_torch.service import MicroBatcher, device_compute_fn, ring
+    from pytensor_federated_torch.telemetry import (
+        BurnRateEngine, FleetCollector, Slo, critpath, reunion, spans, watchdog,
+    )
+    from pytensor_federated_torch.utils import resolve_device, value_and_grad
+
+    t_phase = time.time() - 1.0
+    cpu = resolve_device("cpu")
+    spans.set_enabled(False)  # on only for the short traced run
+    small, large = sizes
+    lanes = [(g, lane) for g in range(POOL_GROUPS) for lane in ("shm", POOL_SECOND_LANE[g])]
+    n_arena_conns = 2 * sum(lane != "tcp" for _, lane in lanes) + 2  # both sizes, and a restart
+    arena_bytes, arena = _arena_budget(n_arena_conns)
+    ctx = mp.get_context("spawn")
+    procs, conns, nodes, pools, closers = {}, {}, {}, [], []
+    victim = (0, "shm")
+    marks = {}  # seconds from the phase's start to the end of each part
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t0
+
+    def start_node(key, ports=None):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_pool_node, args=(*key, sizes, arena_bytes, ports, dev, child),
+                           daemon=True)
+        proc.start()
+        procs[key], conns[key] = proc, parent
+
+    def ask(keys, cmd, timeout=120.0):
+        return dict(zip(keys, _fed_ask([conns[k] for k in keys], cmd, timeout)))
+
+    try:
+        t0 = time.perf_counter()
+        for key in lanes:
+            start_node(key)
+        nodes.update(ask(lanes, None, timeout=300.0))
+        spawn_s = time.perf_counter() - t0
+        mark("spawn")
+        on_card = all(n["cuda"].startswith(dev) for n in nodes.values())
+        on_kernel = dev == "cuda"  # on the CPU the wrapper runs the plain version: no launches
+
+        def make_pools(n_obs):
+            out = []
+            for g in range(POOL_GROUPS):
+                # The default policy (p2c); a breaker trips on the first
+                # failed call or probe, so the kill shows at once.
+                pool = NodePool(transport="tcp", breaker_kwargs={"failure_threshold": 1})
+                for key in lanes:
+                    if key[0] == g:
+                        pool.add_replica("127.0.0.1", nodes[key]["ports"][n_obs], transport=key[1],
+                                         client_kwargs={"timeout_s": 120.0})
+                pool.start()  # the probe thread
+                pools.append(pool)
+                out.append(pool)
+            return out
+
+        small_pools, large_pools = make_pools(small), make_pools(large)
+        replies = [0] * POOL_GROUPS
+
+        class Counted:
+            """A group's pooled client, counting the replies it returns."""
+
+            def __init__(self, g, client):
+                self.g, self.client = g, client
+
+            def evaluate(self, *arrays):
+                out = self.client.evaluate(*arrays)
+                replies[self.g] += 1
+                return out
+
+        small_clients = [Counted(g, PooledArraysClient(p)) for g, p in enumerate(small_pools)]
+        large_clients = [PooledArraysClient(p) for p in large_pools]
+
+        # Values at 8 x 131,072: the federated phase's points, bit for bit.
+        fed_points = {v["point"]: v for v in fed_line.get("values", {}).get("points", [])}
+        init = {k: torch.zeros((8,) if k == "offsets" else (), dtype=torch.float32, device=cpu)
+                for k in ("intercept", "slope", "log_sigma", "offsets")}
+        flat0, unravel = ravel(init)
+        _, true_offsets = pft.generate_node_data(8, n_obs=8, seed=123, device="cpu")
+        truth = {"intercept": torch.tensor(TRUE["intercept"]), "slope": torch.tensor(TRUE["slope"]),
+                 "log_sigma": torch.tensor(math.log(TRUE["sigma"])),
+                 "offsets": torch.tensor(true_offsets, dtype=torch.float32)}
+        points = {"origin": flat0, "perturbed": flat0 + 0.1 * torch.arange(11, dtype=torch.float32),
+                  "truth": ravel(truth)[0]}
+        large_post, close = _posterior_over(large_clients)
+        closers.append(close)
+        values = []
+        for name, flat in points.items():
+            bits = _flat_bits(*value_and_grad(large_post, unravel(flat)))
+            ref = fed_points.get(name, {})
+            want = [ref.get("remote_logp")] + list(ref.get("remote_grad", []))
+            values.append({"point": name, "logp": bits[0], "bit_equal": bits == want})
+        values_ok = len(values) == 3 and all(v["bit_equal"] for v in values)
+
+        mark("values")
+        # NUTS through the pools; SIGKILL group 0's shm replica a third of
+        # the way in and restart it on the same ports.
+        small_post, close = _posterior_over(small_clients)
+        closers.append(close)
+        victim_replica = small_pools[0].replica_at("127.0.0.1", nodes[victim]["ports"][small])
+        breaker_log = []
+        notify = victim_replica.breaker._on_transition
+
+        def on_transition(old, new):
+            breaker_log.append((round(time.perf_counter() - t0, 3), old, new))
+            notify(old, new)
+
+        victim_replica.breaker._on_transition = on_transition
+        kill_at = max(1, int(fed_line.get("nuts", {}).get("grad_evals") or 5_651) // 3)
+        ask(lanes, "reset")
+        replies[:] = [0] * POOL_GROUPS
+        grad_evals, before_kill, restart = 0, {}, {}
+
+        def restart_victim():
+            try:
+                start_node(victim, nodes[victim]["ports"])
+                restart.update(ask([victim], None, timeout=300.0)[victim])
+            except Exception:
+                restart["error"] = traceback.format_exc()
+
+        def counted(p):
+            nonlocal grad_evals
+            grad_evals += 1
+            if grad_evals == kill_at:
+                before_kill.update(ask(lanes, "counts"))
+                restart["killed_at_s"] = time.perf_counter() - t0
+                procs[victim].kill()  # SIGKILL: no shutdown, no unlink
+                procs[victim].join(timeout=30)
+                restart["thread"] = threading.Thread(target=restart_victim, daemon=True)
+                restart["thread"].start()
+            return small_post(p)
+
+        gen = torch.Generator(device=cpu).manual_seed(seed)
+        t_nuts = time.perf_counter()
+        res = pft.samplers.sample(counted, init, generator=gen, num_warmup=nuts[1],
+                                  num_samples=nuts[2], num_chains=nuts[0])
+        nuts_wall = time.perf_counter() - t_nuts
+        nuts_replies = list(replies)
+        thread = restart.pop("thread", None)
+        if thread is not None:
+            thread.join(timeout=300)
+        if "error" in restart:
+            raise RuntimeError(f"the restarted node failed:\n{restart['error']}")
+        after = ask(lanes, "counts")
+        # The restarted replica's breaker closes (the probe thread or a call).
+        deadline = time.perf_counter() + 60
+        while victim_replica.breaker.state != "closed" and time.perf_counter() < deadline:
+            value_and_grad(small_post, truth)
+            time.sleep(0.05)
+        s = res.samples
+        max_rhat = max(float(v.max()) for v in pft.samplers.split_rhat(s).values())
+        sha = _draws_sha256(s)
+        served_before_kill = {f"{g}/{lane}": c["requests"] for (g, lane), c in before_kill.items()}
+        # Node-side launches and requests: the victim's up to its kill,
+        # everyone's (the restarted victim's from its start) after.
+        node_requests = sum(c["requests"] for c in after.values()) + before_kill.get(victim, {}).get(
+            "requests", 0)
+        nuts_launches = sum(c["launches"] for c in after.values()) + before_kill.get(victim, {}).get(
+            "launches", 0)
+        # Open, then closed again: by a half-open trial call, or by a
+        # probe of the restarted node (the probe thread closes an open
+        # breaker whose node answers).
+        states = [new for _, _, new in breaker_log]
+        breaker_ok = ("open" in states and "closed" in states[states.index("open"):]
+                      and victim_replica.breaker.state == "closed")
+        # Exactly one reply per request, and each request computed once:
+        # at the driver, every group's client returned one reply per
+        # evaluation; at the nodes, the group's replicas served as many.
+        one_reply = (all(r == grad_evals for r in nuts_replies) and grad_evals > 0
+                     and node_requests == POOL_GROUPS * grad_evals)
+        nuts_ok = (
+            sha == fed_line.get("nuts", {}).get("draws_sha256") and one_reply and breaker_ok
+            and len(before_kill) == len(lanes) and all(v >= 1 for v in served_before_kill.values())
+            and max_rhat < 1.05 and (nuts_launches == node_requests or not on_kernel)
+        )
+
+        mark("nuts")
+        # Windows at 8 x 131,072: W parameter sets per evaluate_many, each
+        # reply against the same request alone; launches against windows.
+        rng = np.random.default_rng(seed)
+        window_reqs = {
+            w: [(np.float32(1.5 + 0.1 * rng.normal()), np.float32(2.0 + 0.1 * rng.normal()),
+                 np.float32(math.log(0.5) + 0.05 * rng.normal()),
+                 (true_offsets + 0.05 * rng.normal(size=8)).astype(np.float32))
+                for _ in range(w)] for w in windows}
+        ask(lanes, "reset")
+        window_ms, window_out = {}, {}
+        for w, reqs in window_reqs.items():
+            times = []
+            for _ in range(POOL_WINDOW_REPS):
+                for g, client in enumerate(large_clients):
+                    share = [(a, b, c, o[2 * g:2 * g + 2]) for a, b, c, o in reqs]
+                    ts = time.perf_counter()
+                    out = client.evaluate_many(share, window=w)
+                    times.append(time.perf_counter() - ts)
+                    window_out.setdefault((w, g), []).append(out)
+            window_ms[w] = statistics.median(times) * 1e3
+        window_counts = ask(lanes, "counts")
+        singles_ms, window_bits_ok = [], True
+        for (w, g), outs in window_out.items():
+            for i, (a, b, c, o) in enumerate(window_reqs[w]):
+                ts = time.perf_counter()
+                one = large_clients[g].evaluate(a, b, c, o[2 * g:2 * g + 2])
+                singles_ms.append((time.perf_counter() - ts) * 1e3)
+                for out in outs:
+                    window_bits_ok &= all(np.asarray(x).tobytes() == np.asarray(y).tobytes()
+                                          for x, y in zip(out[i], one))
+        per_replica = {
+            f"{g}/{lane}": {"launches": c["launches"], **c["windows"], "window_sizes": c["window_sizes"]}
+            for (g, lane), c in window_counts.items()}
+        windows_launch_ok = sum(c["windows"]["vmapped"] for c in window_counts.values()) > 0 and all(
+            c["windows"]["fallback"] == 0 and c["windows"]["serial"] == 0
+            and (c["launches"] == c["windows"]["vmapped"] + c["windows"]["single"] or not on_kernel)
+            for c in window_counts.values())
+        window_launches = sum(c["launches"] for c in window_counts.values())
+
+        mark("windows")
+        # One request at the flagship size on each lane, straight through
+        # its own client, and through a pool (group 1: shm + ring).
+        probe = (np.float32(1.5), np.float32(2.0), np.float32(-0.7), np.zeros(2, np.float32))
+        lane_ms = {}
+        for lane, key in (("shm", (2, "shm")), ("ring", (1, "ring")), ("tcp", (2, "tcp"))):
+            client = _lane_client(lane, nodes[key]["ports"][small])
+            try:
+                lane_ms[lane] = _median_ms(lambda: client.evaluate(*probe), POOL_LANE_CALLS)
+            finally:
+                client.close()
+        lane_ms["pooled"] = _median_ms(lambda: small_clients[1].client.evaluate(*probe),
+                                       POOL_LANE_CALLS)
+        mark("lanes")
+        # MicroBatcher in the driver's process, over the kernel on the card.
+        data, _ = pft.generate_node_data(8, n_obs=large, seed=123, device="cpu")
+        (x, y), mask = data.tree()
+        kern = pft.linreg_logp_grad_fn(*(t.to(dev) for t in (x, y, mask)))
+
+        def driver_logp_grad(intercept, slope, log_sigma, offsets):
+            logp, g = kern({"intercept": intercept, "slope": slope, "log_sigma": log_sigma,
+                            "offsets": offsets})
+            return logp, (g["intercept"], g["slope"], g["log_sigma"], g["offsets"])
+
+        compute = device_compute_fn(pft.wrap_logp_grad_fn(driver_logp_grad), device=dev,
+                                    batched=True, max_batch=POOL_BATCHER_REQUESTS)
+        batcher = MicroBatcher(compute, compute.batch, max_batch=POOL_BATCHER_REQUESTS)
+        breqs = [(np.float32(1.5 + 0.1 * rng.normal()), np.float32(2.0 + 0.1 * rng.normal()),
+                  np.float32(math.log(0.5) + 0.05 * rng.normal()),
+                  (true_offsets + 0.05 * rng.normal(size=8)).astype(np.float32))
+                 for _ in range(POOL_BATCHER_REQUESTS)]
+        asyncio.run(MicroBatcher(compute, compute.batch, max_batch=POOL_BATCHER_REQUESTS)
+                    .submit_many(breqs[::-1]))  # warm the vmapped call
+        _sync(dev)
+        linreg_reductions.launches = 0
+        ts = time.perf_counter()
+        bout = asyncio.run(batcher.submit_many(breqs))
+        _sync(dev)
+        batcher_ms = (time.perf_counter() - ts) * 1e3
+        batcher_launches = linreg_reductions.launches
+        bstats = batcher.stats()
+        batcher_bits = all(not isinstance(o, Exception) and all(
+            np.asarray(u).tobytes() == np.asarray(v).tobytes() for u, v in zip(o, compute(*r)))
+            for o, r in zip(bout, breqs))
+        batcher_ok = (batcher_bits and bstats["fallbacks_total"] == 0 and bstats["batches_total"] >= 1
+                      and (batcher_launches == bstats["batches_total"] or not on_kernel))
+
+        mark("batcher")
+        # Fleet telemetry: the collector over the 8 exporters (probes off,
+        # so no request moves while it scrapes).
+        for pool in pools:
+            pool.stop()
+        nodes[victim].update(restart)
+        fleet_counts = ask(lanes, "counts")
+        targets = {f"127.0.0.1:{nodes[k]['ports'][small]}": ("127.0.0.1", nodes[k]["ports"]["exporter"])
+                   for k in lanes}
+        engine = BurnRateEngine(Slo(p99_s=POOL_SLO_P99_S), windows_s=(60.0,))
+        collector = FleetCollector(http_targets=targets, interval_s=3600.0,
+                                   observers=[engine.observe]).start()
+        try:
+            snap = collector.scrape_once()  # the engine's first sample too
+            merged_requests = sum(
+                c["value"] for a, sc in snap.replicas.items() if a in targets
+                for c in sc.metrics.get("pftpu_server_requests_total", {}).get("children", []))
+            own_requests = sum(c["requests_total"] for c in fleet_counts.values())
+            # A short traced pooled run, then its critical path.
+            spans.set_enabled(True)
+            try:
+                spans.clear_traces()
+                reunion.clear()
+                for _ in range(POOL_TRACED_EVALS):
+                    value_and_grad(small_post, truth)
+                report = critpath.analyze_recent()
+            finally:
+                spans.set_enabled(False)
+            collector.scrape_once()  # the engine's second sample: the traced calls
+            burn = engine.report() or {}
+            bundle_dir = tempfile.mkdtemp(prefix="chip-smoke-bundle-")
+            with open(watchdog.write_incident_bundle("pool-phase", dir=bundle_dir)) as fh:
+                bundle = json.load(fh)
+        finally:
+            collector.stop()
+        fleet_ok = (snap.complete and merged_requests == own_requests > 0
+                    and isinstance(bundle.get("fleet"), list) and len(bundle["fleet"]) >= 1)
+        mark("fleet")
+        driver_syscalls = ring.syscall_counts()
+        gates = {"on_card": on_card, "values": values_ok, "nuts": nuts_ok,
+                 "window_bits": window_bits_ok, "window_launches": windows_launch_ok,
+                 "batcher": batcher_ok, "fleet": fleet_ok}
+        line = {
+            "phase": "pool",
+            "gates": gates,
+            "nodes": [{"replica": f"{k[0]}/{k[1]}", "device": nodes[k]["device"],
+                       "cuda": nodes[k]["cuda"], "pid": nodes[k]["pid"]} for k in lanes],
+            "spawn_s": spawn_s, "marks_s": marks, "cpu_count": os.cpu_count(), "arena": arena,
+            "futex_available": ring.futex_available(),
+            "values": {"size": [8, large], "points": values, "bit_equal_to_federated": values_ok},
+            "nuts": {"size": [8, small], "chains": nuts[0], "warmup": nuts[1], "draws": nuts[2],
+                     "wall_s": nuts_wall, "grad_evals": grad_evals,
+                     "ms_per_grad_eval": nuts_wall * 1e3 / max(grad_evals, 1),
+                     "federated_ms_per_grad_eval": fed_line.get("nuts", {}).get("ms_per_grad_eval"),
+                     "draws_sha256": sha, "draws_equal_federated":
+                         sha == fed_line.get("nuts", {}).get("draws_sha256"),
+                     "replies_per_group": nuts_replies, "one_reply_per_request": one_reply,
+                     "killed": f"{victim[0]}/{victim[1]}", "kill_at_eval": kill_at,
+                     "killed_at_s": restart.get("killed_at_s"),
+                     "served_before_kill": served_before_kill,
+                     "breaker_transitions": breaker_log, "breaker_ok": breaker_ok,
+                     "node_requests": node_requests,
+                     "kernel_launches": nuts_launches, "max_split_rhat": max_rhat},
+            "lanes_ms": {"size": [8, small], "calls": POOL_LANE_CALLS, **lane_ms},
+            "windows": {"size": [8, large], "windows": list(windows), "reps": POOL_WINDOW_REPS,
+                        "ms_per_window": window_ms,
+                        "ms_per_request": {w: window_ms[w] / w for w in windows},
+                        "single_ms": statistics.median(singles_ms),
+                        "bit_equal_to_single": window_bits_ok, "per_replica": per_replica,
+                        "launches_equal_windows": windows_launch_ok,
+                        "kernel_launches": window_launches},
+            "batcher": {"requests": POOL_BATCHER_REQUESTS, "kernel_launches": batcher_launches,
+                        "ms": batcher_ms, "bit_equal_to_single": batcher_bits, "stats": bstats},
+            "fleet": {"complete": snap.complete, "stale": snap.stale,
+                      "merged_requests": merged_requests, "nodes_own_requests": own_requests,
+                      "critpath": {k: report.get(k) for k in ("n_traces", "n_skipped",
+                                                               "coverage_frac", "dominant_stage",
+                                                               "stages")},
+                      "slo": {"p99_s": POOL_SLO_P99_S, "burn_rate": burn.get("burn_rate"),
+                              "violating": burn.get("violating")},
+                      "bundle_fleet_sections": len(bundle.get("fleet") or [])},
+            "syscalls": {"driver": driver_syscalls,
+                         "ring_nodes": {f"{g}/{lane}": c["syscalls"] for (g, lane), c in
+                                        fleet_counts.items() if lane == "ring"}},
+            # Node-side launches of the NUTS run and the windows (the
+            # kernel line adds them); the batcher's are the driver's.
+            "kernel_launches": nuts_launches + window_launches,
+        }
+    finally:
+        for close in closers:
+            close()
+        for pool in pools:
+            pool.close()
+        for c in conns.values():
+            try:
+                c.send("stop")
+            except (OSError, ValueError):
+                pass
+        for proc in procs.values():
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    mark("stop")
+    # Every node has stopped (one of them by SIGKILL): no arena file of
+    # this phase may remain.
+    arena["left_after_stop"] = _arena_files(t_phase)
+    gates["no_arena_left"] = not arena["left_after_stop"]
+    return all(gates.values()), line
+
+
+def _draws_sha256(samples):
+    """sha256 of the draws' bytes, leaves in sorted order."""
+    h = hashlib.sha256()
+    for k in sorted(samples):
+        h.update(samples[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _sync(dev):
@@ -2031,13 +2647,14 @@ def phase_model_check(dev="cuda", nuts=MODEL_CHECK_NUTS, data_kw=MODEL_CHECK_DAT
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
-                                           "slice7"],
+                                           "slice7", "slice8"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
                              "wide_logistic, logistic and chees only; slice6: device, build, "
                              "lgssm, gp and tempering only; slice7: device, build, families "
-                             "and model_check only")
+                             "and model_check only; slice8: device, build, nuts, federated "
+                             "and pool only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2074,11 +2691,12 @@ def main() -> int:
     phases = [
         ("kernels", lambda: phase_kernels(bw, flops)),
         ("autograd", phase_autograd),
-        ("nuts", lambda: phase_nuts("nuts", FLAGSHIP[1], NUTS_CHAINS, 300, 300,
+        ("nuts", lambda: phase_nuts("nuts", FLAGSHIP[1], *NUTS_FLAGSHIP,
                                     dense_mass=False)),
         ("nuts_large",
          lambda: phase_nuts("nuts_large", LARGE_PATH[1], *NUTS_LARGE, dense_mass=True)),
         ("federated", lambda: phase_federated(lines.get("nuts", {}))),
+        ("pool", lambda: phase_pool(lines.get("federated", {}))),
         ("radon", phase_radon),
         ("logistic", phase_logistic),
         ("lv_ode", phase_lv_ode),
@@ -2103,6 +2721,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("lgssm", "gp", "tempering")]
     elif args.only == "slice7":
         phases = [ph for ph in phases if ph[0] in ("families", "model_check")]
+    elif args.only == "slice8":
+        phases = [ph for ph in phases if ph[0] in ("nuts", "federated", "pool")]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -2128,8 +2748,9 @@ def main() -> int:
         "source": "pytensor_federated_torch/ops/csrc/linreg_reductions.cu",
         "replaces": "pytensor_federated_tpu/ops/pallas_kernels.py:78",
         # Counted from zero just before each NUTS phase, read just after
-        # (in the federated phase, by the four node processes).
-        "launches": sum(lines[p].get("kernel_launches", 0) for p in ("nuts", "nuts_large"))
+        # (in the federated phase, by the four node processes; in the pool
+        # phase, by the eight nodes, over its NUTS run and its windows).
+        "launches": sum(lines[p].get("kernel_launches", 0) for p in ("nuts", "nuts_large", "pool"))
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

@@ -13,6 +13,7 @@ tree with leading ``(chains, draws)`` axes, as in JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
@@ -192,8 +193,19 @@ def graph_batch_logp_and_grad(lg: Callable, example: torch.Tensor) -> Callable:
             lg(static_x)
     stream.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static_v, static_g = lg(static_x)
+    # An earlier graph that is garbage (``replay`` below is a reference
+    # cycle, freed only by the cyclic collector) must not be freed during
+    # the capture: its reset there invalidates the capture.  Collect it
+    # first and keep the collector off until the capture ends.
+    gc.collect()
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            static_v, static_g = lg(static_x)
+    finally:
+        if gc_was_enabled:
+            gc.enable()
 
     def replay(x):
         if x.shape != static_x.shape or x.dtype != static_x.dtype:

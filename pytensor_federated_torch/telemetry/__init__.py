@@ -16,12 +16,21 @@ A process that imports both packages holds two separate registries.
 - :mod:`.reunion` — driver-side merge of the span trees nodes ship back
   on their replies.
 
-The fleet collector, critical-path analysis and SLO engine of the JAX
-package are not ported yet.
+- :mod:`.collector` — the fleet plane: harvest every replica's
+  snapshot over HTTP ``/snapshot`` (the GetLoad lane is gRPC's, not
+  ported yet), merge (counters summed, histograms bucket-wise, gauges
+  per replica) with loud staleness marking, estimate per-replica clock
+  offsets, and interleave all flight records into one timeline.
+- :mod:`.critpath` — critical-path analysis over reunion-merged span
+  trees: per-stage p50/p99 decomposition of end-to-end latency.
+- :mod:`.slo` — declarative SLOs + a multi-window burn-rate engine
+  over successive fleet snapshots.
 """
 
-from . import flightrec, reunion, watchdog
+from . import collector, critpath, flightrec, reunion, slo, watchdog
+from .collector import FleetCollector, FleetSnapshot
 from .export import MetricsExporter, dump_jsonl, snapshot, start_exporter
+from .slo import BurnRateEngine, Slo
 from .watchdog import write_incident_bundle
 from .metrics import (
     Counter,
@@ -48,15 +57,21 @@ from .spans import (
 )
 
 __all__ = [
+    "BurnRateEngine",
     "Counter",
+    "FleetCollector",
+    "FleetSnapshot",
     "Gauge",
     "Histogram",
     "MetricsExporter",
     "REGISTRY",
     "Registry",
+    "Slo",
     "Span",
     "clear_traces",
+    "collector",
     "counter",
+    "critpath",
     "current_span",
     "current_trace_id",
     "dump_jsonl",
@@ -69,6 +84,7 @@ __all__ = [
     "render_prometheus",
     "reunion",
     "set_enabled",
+    "slo",
     "snapshot",
     "span",
     "start_exporter",

@@ -148,7 +148,11 @@ def write_incident_bundle(
     is installed (:mod:`..faultinject`), a ``fault_plan`` section
     embeds its id, rules, and live fire counters, so a chaos-triggered
     bundle is self-describing — *what chaos did* sits next to *how the
-    system reacted*.  Everything is read best-effort: a half-wedged
+    system reacted*.  When a :class:`~.collector.FleetCollector` is
+    live, a ``fleet`` section embeds the latest sweep's staleness
+    record and the clock-aligned cross-process incident timeline
+    (:func:`.collector.bundle_sections`).  Everything is read
+    best-effort: a half-wedged
     process must still get SOME bundle out, so each section degrades to
     an ``"error"`` string instead of aborting the write.
     """
@@ -160,6 +164,14 @@ def write_incident_bundle(
         from ..faultinject import runtime as _fi_runtime
 
         return _fi_runtime.snapshot()
+
+    def _fleet():
+        # The clock-aligned fleet picture, when a FleetCollector is
+        # live in this process (None keeps single-process bundles
+        # clean — same contract as fault_plan).
+        from . import collector as _collector
+
+        return _collector.bundle_sections()
 
     bundle: dict = {
         "reason": reason,
@@ -174,12 +186,13 @@ def write_incident_bundle(
         ("telemetry", _export.snapshot),
         ("trace_reunion", _reunion.merge_all),
         ("fault_plan", _fault_plan),
+        ("fleet", _fleet),
     ):
         try:
             value = build()
         except Exception as e:  # best-effort: never lose the bundle
             value = {"error": f"{type(e).__name__}: {e}"}
-        if key == "fault_plan" and value is None:
+        if key in ("fault_plan", "fleet") and value is None:
             continue  # nothing live on that lane: keep bundles clean
         bundle[key] = value
 

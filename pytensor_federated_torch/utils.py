@@ -1,4 +1,5 @@
-"""Shared constants, device resolution and a minimal pytree walker.
+"""Shared constants, device resolution, a minimal pytree walker and the
+host transport's per-thread event loop.
 
 The port keeps its own copy of what it needs from the JAX package's
 ``utils.py`` (it imports nothing from that package), and replaces
@@ -9,7 +10,9 @@ and that is all they need to walk.
 
 from __future__ import annotations
 
+import asyncio
 import math
+import threading
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -106,3 +109,28 @@ def solve_or_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     singular, with no host sync (see :func:`cholesky_or_nan`)."""
     x, info = torch.linalg.solve_ex(a, b, check_errors=False)
     return torch.where((info == 0)[..., None, None], x, torch.nan)
+
+
+_thread_loops = threading.local()
+
+
+def get_event_loop() -> asyncio.AbstractEventLoop:
+    """Return THIS thread's event loop (create and cache if necessary).
+
+    The running loop when called from a coroutine; otherwise a private
+    loop per thread, created once and kept: the sync wrappers of the
+    host transports (``NodePool.probe_once``,
+    ``PooledArraysClient.evaluate``, ``FleetCollector.scrape_once``)
+    run their coroutines on it.  It is deliberately not installed with
+    ``asyncio.set_event_loop``, so it never clobbers a loop the
+    application registered for its own use.
+    """
+    try:
+        return asyncio.get_running_loop()
+    except RuntimeError:
+        pass
+    loop = getattr(_thread_loops, "loop", None)
+    if loop is None or loop.is_closed():
+        loop = asyncio.new_event_loop()
+        _thread_loops.loop = loop
+    return loop

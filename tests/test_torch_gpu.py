@@ -631,3 +631,93 @@ def test_cuda_graph_evaluation_equals_eager(name):
     assert runs[0].extra is None and runs[1].extra["graph_replays"] > 0
     for k in runs[0].samples:
         assert torch.equal(runs[0].samples[k], runs[1].samples[k]), k
+
+
+def _window_node(dev, S=2, N=131_072, seed=11):
+    """A node's compute over the kernel on ``dev``, batched, and W
+    seeded parameter sets for it."""
+    from pytensor_federated_torch.service import device_compute_fn
+    from pytensor_federated_torch.wrappers import wrap_logp_grad_fn
+
+    _, _, x, y, m = _case(S, N, dev, seed=seed)
+    kern = linreg_logp_grad_fn(x, y, m)
+    keys = ("intercept", "slope", "log_sigma", "offsets")
+
+    def logp_grad(*params):
+        logp, g = kern(dict(zip(keys, params)))
+        return logp, tuple(g[k] for k in keys)
+
+    compute = device_compute_fn(wrap_logp_grad_fn(logp_grad), device=dev, batched=True,
+                                max_batch=64)
+    rng = np.random.default_rng(seed)
+
+    def requests(w):
+        return [(np.float32(1.0 + 0.1 * rng.normal()), np.float32(2.0 + 0.1 * rng.normal()),
+                 np.float32(-1.2 + 0.05 * rng.normal()), rng.normal(size=S).astype(np.float32))
+                for _ in range(w)]
+
+    return compute, requests
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [3, 16, 64])
+def test_shm_window_on_the_card_is_one_launch(w):
+    """A window of W requests through an in-process shm node on the card
+    is one kernel launch (C = W padded to the next power of two), and
+    each reply equals that request alone, bit for bit."""
+    import threading
+
+    from pytensor_federated_torch.service import ShmArraysClient, batching, serve_shm
+
+    dev = _cuda()
+    compute, requests = _window_node(dev)
+    ready, ports = threading.Event(), []
+    threading.Thread(target=serve_shm, args=(compute,), daemon=True,
+                     kwargs={"max_connections": 1,
+                             "ready_callback": lambda p: (ports.append(p), ready.set())}).start()
+    assert ready.wait(30)
+    client = ShmArraysClient("127.0.0.1", ports[0], timeout_s=60)
+    vmapped = batching._BATCHES.labels(kind="vmapped")
+    fallback = batching._BATCHES.labels(kind="fallback")
+    try:
+        reqs = requests(w)
+        client.evaluate_many(reqs, window=w)  # the first vmapped call of this shape
+        torch.cuda.synchronize()
+        launches, windows, fallbacks = linreg_reductions.launches, vmapped.value, fallback.value
+        many = client.evaluate_many(reqs, window=w)
+        n_frames = -(-w // 32)  # a batch frame carries at most 32 requests
+        assert linreg_reductions.launches - launches == vmapped.value - windows == n_frames
+        assert fallback.value == fallbacks
+        singles = [client.evaluate(*r) for r in reqs]
+        for got, want in zip(many, singles):
+            assert len(got) == len(want) == 5
+            for g, s in zip(got, want):
+                assert np.asarray(g).tobytes() == np.asarray(s).tobytes()
+    finally:
+        client.close()
+
+
+@pytest.mark.gpu
+def test_micro_batcher_over_the_kernel_on_the_card():
+    """64 requests submitted at once to a MicroBatcher in front of the
+    kernel: one window, one launch, no fallback, each reply equal to the
+    request alone, bit for bit."""
+    import asyncio
+
+    from pytensor_federated_torch.service import MicroBatcher
+
+    dev = _cuda()
+    compute, requests = _window_node(dev, S=8, N=4099)
+    reqs = requests(64)
+    asyncio.run(MicroBatcher(compute, compute.batch, max_batch=64).submit_many(reqs[::-1]))
+    batcher = MicroBatcher(compute, compute.batch, max_batch=64)
+    torch.cuda.synchronize()
+    before = linreg_reductions.launches
+    out = asyncio.run(batcher.submit_many(reqs))
+    stats = batcher.stats()
+    assert linreg_reductions.launches - before == stats["batches_total"] == 1
+    assert stats["fallbacks_total"] == 0 and stats["dispatched_total"] == 64
+    for got, r in zip(out, reqs):
+        assert not isinstance(got, Exception)
+        for g, s in zip(got, compute(*r)):
+            assert np.asarray(g).tobytes() == np.asarray(s).tobytes()

@@ -63,6 +63,64 @@ def test_each_subpackage_alone_loads_no_jax_or_grpc(name):
     assert "BAD []" in out.stdout, out.stdout
 
 
+#: The host-federation modules of the replica pool and the colocated
+#: lanes: each must import, and run its gRPC seams, without gRPC.
+FEDERATION_MODULES = (
+    "utils", "service.npproto_codec", "service.batching", "service.arena", "service.shm",
+    "service.ring", "service._grpc_lane", "routing.breaker", "routing.budget", "routing.policies",
+    "routing.pool", "routing.pooled_client", "telemetry.collector", "telemetry.critpath",
+    "telemetry.slo", "telemetry.watchdog",
+)
+
+
+def test_each_federation_module_loads_no_jax_or_grpc():
+    """In one fresh interpreter, the federation modules are imported one
+    at a time; after each, no JAX, JAX package or gRPC module is loaded."""
+    code = (
+        "import importlib, sys\n"
+        "import torch  # the package needs it; it is not under test\n"
+        f"for name in {list(FEDERATION_MODULES)!r}:\n"
+        "    importlib.import_module('pytensor_federated_torch.' + name)\n"
+        f"    bad = sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)})\n"
+        "    print(name, 'BAD', bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines == [f"{name} BAD []" for name in FEDERATION_MODULES], out.stdout
+
+
+def test_grpc_seams_raise_without_loading_grpc():
+    """A pool or collector asked for the gRPC lane raises its named
+    error, and classifying failures on the other lanes never imports
+    ``grpc`` (it is installed here, so an import would succeed)."""
+    code = (
+        "import sys\n"
+        "from pytensor_federated_torch.routing import NodePool, pooled_client\n"
+        "from pytensor_federated_torch.service._grpc_lane import GrpcLaneUnavailable\n"
+        "from pytensor_federated_torch.telemetry import FleetCollector\n"
+        "raised = []\n"
+        "for make in (lambda: NodePool([('127.0.0.1', 1)]),\n"
+        "             lambda: FleetCollector(targets=['127.0.0.1:1'])):\n"
+        "    try:\n"
+        "        make()\n"
+        "    except GrpcLaneUnavailable:\n"
+        "        raised.append(True)\n"
+        "pool = NodePool(transport='tcp')\n"
+        "transient = [pool.is_transient(e) for e in (ConnectionError('x'), RuntimeError('x'))]\n"
+        "checked = pooled_client._is_transport_error(OSError('x'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)})\n"
+        "print(raised, transient, checked, 'BAD', bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[True, True] [True, False] True BAD []", out.stdout
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
