@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only slice6    # device, build, lgssm, gp, tempering
     python3 chip_smoke.py --only slice7    # device, build, families, model_check
     python3 chip_smoke.py --only slice8    # device, build, nuts, federated, pool
+    python3 chip_smoke.py --only slice9    # device, build, gateway
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -91,7 +92,38 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    Also printed: ``df`` of the arena directory and the arena size,
    ``os.cpu_count()``, the futex shim and the ring syscall counts, the
    critical path of a short traced run and an SLO burn verdict.
-9. ``radon`` — BASELINE.json config 3 (the hierarchical radon GLM, 16
+9. ``gateway`` — the gateway tier.  Two node processes (``spawn``) on
+   the card, each serving all 8 shards of the flagship at 8 x 131,072
+   through the kernel (``device_compute_fn(..., batched=True)``,
+   ``max_batch=64``) with ``serve_tcp_once``, behind a ``NodePool(
+   transport="tcp")`` (round robin, a probe thread) and a
+   ``GatewayThread`` with a per-tenant quota of 384 requests/s (burst
+   64).  Downstream, 128 connections write pipelined npwire frames,
+   each stamped with one of 4 tenants, evenly over 4 s: 4,096 requests
+   over 256 seeded parameter sets, half of them from a hog tenant (512/s
+   offered), the rest from three mice at equal weights (~171/s each),
+   plus 64 frames whose deadline is already spent.  Node A is SIGKILLed
+   a third of the way in and restarted on its port.  The hog's denied
+   requests are then retried at 256/s until answered.  Then an
+   ``Autoscaler`` over the gateway's signals: bursts of unpaced requests
+   from 32 tenants fill the fair queue, its spawn callback starts node C
+   on the card, C takes a share of 512 more requests, and the scaler
+   drains it on stop.  Gates: every reply that is not an error equal,
+   bit for bit, to its parameter set sent alone to a node through
+   ``TcpArraysClient``; each node's windows equal the windows the
+   gateway had answered by it (the one window in flight on A when it
+   was killed aside), one kernel launch each, and the gateway's window
+   histogram counts each answered or failed window once, more than one
+   request per window on average; every denial
+   names the hog, carries ``OVERLOAD_ERROR_PREFIX`` and is answered when
+   retried, and no mouse is denied; the 64 expired frames are shed at the
+   gateway (``pftpu_gateway_shed_total{reason="expired_arrival"}`` grows
+   by 64) and no node computes them; no reply hangs, and the restarted
+   A serves windows; C scales up, serves windows and is drained.  Also
+   printed: requests/s, requests and ms per window, p50/p99 latency per
+   tenant, failed upstream attempts, in-band errors, the card's name and
+   power limit.
+10. ``radon`` — BASELINE.json config 3 (the hierarchical radon GLM, 16
    county shards) on the card: value and gradient at three points against
    the same model in float64 on the CPU; ms per logp+grad evaluation
    (median of 50); NUTS, 1 chain x 300 warmup + 200 draws, its
@@ -99,7 +131,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    run's draws, bit for bit, without its host dispatch), with finite
    draws, divergence share < 0.1, |median beta - truth| < 0.3 (the JAX
    package's test gate) and split R-hat < 1.1.
-10. ``logistic`` — config 5 (64 shards x 64 observations x 8 features):
+11. ``logistic`` — config 5 (64 shards x 64 observations x 8 features):
    the vmapped, sufficient-statistic and flattened forms behind
    bench_suite's equality gate; the vmapped form, its bf16 compute dtype
    and the hierarchical model against float64 on the CPU; ms per
@@ -110,24 +142,24 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    and min-ESS/s; every
    w and b within 4 sd of the generating values, split R-hat < 1.1
    (and bench_suite's < 1.2).
-11. ``lv_ode`` — config 4 (Lotka-Volterra, 8 shards, 128 RK4 steps):
+12. ``lv_ode`` — config 4 (Lotka-Volterra, 8 shards, 128 RK4 steps):
    values against float64 on the CPU; ms (median of 20) and CUDA
    launches (profiler) per logp+grad evaluation; ``find_map`` for 50
    steps on the card against 50 steps in float64 on the CPU.  No NUTS:
    an evaluation is launch-bound at tens of ms.
-12. ``wide_logistic`` — config 7 (bench_suite.py:878): the logistic
+13. ``wide_logistic`` — config 7 (bench_suite.py:878): the logistic
    regression at 8 shards x 4,096 observations x 512 features (X is 64
    MiB), 64 chains at init + 0.01 N(0, 1), one batched value+grad per
    form (float32 with TF32 off, bf16 compute dtype, float32_strict),
    each chain's value and gradient against the strict form at
    bench_suite's gates; ms per batched evaluation and its share of the
    matching dense peak.
-13. ``chees`` — config 9 (bench_suite.py:1050): ChEES-HMC on config 5's
+14. ``chees`` — config 9 (bench_suite.py:1050): ChEES-HMC on config 5's
    posterior, 16 chains x 200 warmup + 200 draws, jitter 0.1;
    min-ESS/s against config 8's NUTS of the same run, leapfrog
    gradients/s, the adapted step size and trajectory length; split
    R-hat < 1.2 and finite draws.
-14. ``lgssm`` — config 6 (bench_suite.py:814): the linear-Gaussian
+15. ``lgssm`` — config 6 (bench_suite.py:814): the linear-Gaussian
    state-space model at T = 4,096 (seed 7, d = 2, k = 1): logp+grad of
    the sequential Kalman filter and of the parallel-in-time one (an
    associative scan), float32 with TF32 off; each against the other and
@@ -138,7 +170,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    ~11 s a call), their ratio, CUDA launches and FLOPs per evaluation
    (the sequential form's counted at T = 32 and 64 and extrapolated:
    linear in T).
-15. ``gp`` — config 10 (bench_suite.py:1125): the federated exact GP at 8
+16. ``gp`` — config 10 (bench_suite.py:1125): the federated exact GP at 8
    shards x 256 points against float64 on the CPU (value rtol 1e-4,
    gradient 1e-3 |g| + 1e-4 max|g|), one warm evaluation under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); ms, FLOPs
@@ -147,7 +179,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    gated); the sparse GP with 32 inducing points against float64 (value
    within 1e-4 |logp| + 1e-5 n: a sum of O(n) terms that crosses zero)
    and its ms.
-16. ``tempering`` — config 12 (bench_suite.py:1435): parallel tempering
+17. ``tempering`` — config 12 (bench_suite.py:1435): parallel tempering
    on a 16-sigma bimodal in 8 dimensions, 2 stacks x 8 temperatures, 500
    warmup + 1,000 draws, against NUTS with 4 chains and jitter 5 at the
    same lengths; each run once after a 20-iteration warm-up run; wall,
@@ -155,7 +187,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    batched evaluations and CUDA launches per iteration; gates PT balance
    < 0.3 and the NUTS control's > 0.35 (bench_suite.py:1555-1558).
 
-17. ``families`` — every GLM family of the port at config 5's shard
+18. ``families`` — every GLM family of the port at config 5's shard
    layout, 64 shards x 64 observations x 8 features (bench_suite.py:750):
    Poisson, NB2, ZIP, ZINB, Student-t, Gamma, ordinal (5 categories),
    softmax (4 classes; raw and sufficient-statistic forms), hierarchical
@@ -166,7 +198,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    model in float32 on the CPU there); ms (median of 30) and CUDA
    launches per logp+grad; the softmax forms behind bench.py's equality
    gate.
-18. ``model_check`` — the JAX package's count-family comparison
+19. ``model_check`` — the JAX package's count-family comparison
    (tests/test_model_comparison.py:92) at width 8:
    ``generate_zi_count_data(16, n_obs=256, n_features=8, pi=0.35,
    seed=5)``; Poisson, NB2, ZIP and ZINB each fit by NUTS, 4 chains x 150
@@ -180,7 +212,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    ``d_elpd`` beyond 2 of its ``d_se``; the observed share of zeros
    inside the predictive's central 90%; finite draws.
 
-Phases 9-18 launch no kernel of the port: the JAX package computes
+Phases 10-19 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
@@ -190,7 +222,8 @@ with ``--only models`` the radon, logistic and lv_ode phases only, with
 ``--only samplers`` the nuts, wide_logistic, logistic and chees phases
 only, with ``--only slice6`` the lgssm, gp and tempering phases only,
 with ``--only slice7`` the families and model_check phases only, with
-``--only slice8`` the nuts, federated and pool phases only;
+``--only slice8`` the nuts, federated and pool phases only, with
+``--only slice9`` the gateway phase only;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -1633,6 +1666,588 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
     return all(gates.values()), line
 
 
+# The gateway phase: a tenant-fair front door (GatewayThread) over a
+# NodePool of torch TCP nodes on the card, each serving the flagship
+# logp+grad at 8 x 131,072 through the kernel, a window of requests per
+# kernel launch.  Downstream: 128 connections of pipelined npwire frames
+# from 4 tenants, offered at a fixed pace; the hog offers half of them,
+# above its quota; 64 more frames carry spent deadlines.
+GATEWAY_TENANTS = ("hog", "mouse-a", "mouse-b", "mouse-c")
+GATEWAY_CONNECTIONS = 128  # even: the hog's; odd: a mouse's, in turn
+GATEWAY_REQUESTS = 4096  # the hog 2,048; each mouse ~683
+GATEWAY_EXPIRED = 64
+GATEWAY_OFFER_S = 4.0  # the traffic is offered evenly over this many seconds
+# Per-tenant quota: the hog offers 512/s against 384/s (denied about a
+# quarter of its requests), a mouse ~171/s (never denied: its burst
+# absorbs any bunching of its evenly paced frames).
+GATEWAY_QUOTA = dict(quota_rate_per_s=384.0, quota_burst=64.0)
+GATEWAY_RETRY_RATE = 256.0  # denied hog requests are retried at this pace (< quota)
+GATEWAY_RETRY_ROUNDS = 6
+GATEWAY_DISTINCT = 256  # distinct parameter sets; each is also sent alone
+GATEWAY_MAX_BATCH = 64  # a node's padded-bucket ladder (a window holds at most 32)
+GATEWAY_UPSTREAM_TIMEOUT_S = 10.0
+GATEWAY_READ_TIMEOUT_S = 40.0  # a downstream reply later than this is a hang
+GATEWAY_BURST = (32, 32)  # the autoscaler's pressure: tenants x requests, unpaced
+GATEWAY_SCALE_UP_DEPTH = 16.0
+GATEWAY_AFTER = 512  # requests offered after the scale-up, over 1 s
+
+
+def _gateway_node(name, n_obs, port, dev, shared, conn):
+    """One gateway replica process: all 8 shards of
+    ``generate_node_data(8, n_obs, seed=123)``, rebuilt here on ``dev``,
+    served by ``device_compute_fn(..., batched=True)`` over the kernel
+    with ``serve_tcp_once`` on ``port`` (0: ephemeral).  It warms its
+    vmapped path at every window shape, sets its launch count to 0,
+    reports, and binds only when told to; ``shared`` holds its kernel
+    launches, requests computed and windows since the last count reset,
+    updated after each call returns (so they survive a SIGKILL).  A
+    ``"reset"`` command sets them all to 0."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import threading
+
+        import numpy as np
+
+        import pytensor_federated_torch as pft
+        from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+        from pytensor_federated_torch.service import device_compute_fn, serve_tcp_once
+
+        if dev == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"gateway node {name} found no GPU")
+        data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device="cpu")
+        (x, y), mask = data.tree()
+        kern = pft.linreg_logp_grad_fn(*(t.to(dev) for t in (x, y, mask)))
+
+        def node_logp_grad(intercept, slope, log_sigma, offsets):
+            logp, g = kern({"intercept": intercept, "slope": slope, "log_sigma": log_sigma,
+                            "offsets": offsets})
+            return logp, (g["intercept"], g["slope"], g["log_sigma"], g["offsets"])
+
+        compute = device_compute_fn(pft.wrap_logp_grad_fn(node_logp_grad), device=dev,
+                                    batched=True, max_batch=GATEWAY_MAX_BATCH)
+        probe = (np.float32(1.5), np.float32(2.0), np.float32(-0.7), np.zeros(8, np.float32))
+        compute(*probe)
+        for w in (2, 4, 8, 16, 32):  # every padded window shape up to a frame
+            compute.batch([probe] * w)
+        linreg_reductions.launches = 0
+        single, batch = compute, compute.batch
+
+        def count(n):
+            with shared.get_lock():
+                shared[0] = linreg_reductions.launches
+                shared[1] += n
+                shared[2] += 1
+
+        def counted(*arrays):
+            out = single(*arrays)
+            count(1)
+            return out
+
+        def counted_batch(requests):
+            out = batch(requests)
+            count(len(requests))
+            return out
+
+        counted.batch = counted_batch
+        conn.send({"name": name, "built": True})
+        if conn.recv() != "bind":
+            return
+        bound, ports = threading.Event(), []
+        threading.Thread(target=serve_tcp_once, args=(counted,), daemon=True,
+                         kwargs={"port": port, "concurrent": True,
+                                 "ready_callback": lambda p: (ports.append(p), bound.set())}).start()
+        if not bound.wait(60):
+            raise RuntimeError(f"gateway node {name} did not bind a port")
+        conn.send({"name": name, "port": ports[0], "pid": os.getpid(),
+                   "device": torch.cuda.get_device_name() if dev == "cuda" else "cpu",
+                   "cuda": str(compute.device)})
+        while conn.recv() == "reset":  # counts to 0 just before a drive
+            with shared.get_lock():
+                linreg_reductions.launches = 0
+                shared[0] = shared[1] = shared[2] = 0
+            conn.send({"reset": True})
+    except Exception:
+        conn.send({"error": traceback.format_exc()})
+
+
+async def _drive_gateway(port, conns, on_sent=None):
+    """One round of downstream traffic: ``conns`` holds, per connection,
+    its items (``id``, ``at`` seconds after the start, the ``frame``),
+    each connection writing its frames at their times and reading the
+    replies in order (the npwire FIFO contract).  Returns ``{id:
+    (reply bytes or None, seconds from write to reply)}``; a reply that
+    does not come within the read timeout is ``None`` (a hang)."""
+    import asyncio
+    import struct
+
+    results = {}
+    t0 = time.perf_counter()
+
+    async def one(items):
+        reader, writer = await asyncio.wait_for(asyncio.open_connection("127.0.0.1", port), 30)
+        sent = asyncio.Queue()
+
+        async def write():
+            for it in items:
+                delay = t0 + it["at"] - time.perf_counter()
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                writer.write(struct.pack("<I", len(it["frame"])) + it["frame"])
+                sent.put_nowait((it["id"], time.perf_counter()))
+                if on_sent is not None:
+                    on_sent()
+                await writer.drain()
+
+        async def read():
+            for k in range(len(items)):
+                rid, ts = await sent.get()
+                try:
+                    (n,) = struct.unpack("<I", await asyncio.wait_for(
+                        reader.readexactly(4), GATEWAY_READ_TIMEOUT_S))
+                    body = await asyncio.wait_for(reader.readexactly(n), GATEWAY_READ_TIMEOUT_S)
+                except (asyncio.TimeoutError, asyncio.IncompleteReadError, OSError):
+                    for it in items[k:]:
+                        results[it["id"]] = (None, None)
+                    return
+                results[rid] = (body, time.perf_counter() - ts)
+
+        try:
+            await asyncio.gather(write(), read())
+        finally:
+            writer.close()
+
+    await asyncio.gather(*(one(items) for items in conns if items))
+    return results, time.perf_counter() - t0
+
+
+def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
+                  offer_s=GATEWAY_OFFER_S, seed=7):
+    import asyncio
+    import collections
+    import importlib.util
+    import multiprocessing as mp
+    import struct
+    import threading
+
+    import numpy as np
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.gateway import (
+        OVERLOAD_ERROR_PREFIX, Autoscaler, GatewayThread, TenantFairness, is_overload_error,
+    )
+    from pytensor_federated_torch.routing import NodePool
+    from pytensor_federated_torch.service import TcpArraysClient
+    from pytensor_federated_torch.service.deadline import is_deadline_error
+    from pytensor_federated_torch.service.npwire import decode_arrays_all, encode_arrays
+    from pytensor_federated_torch.telemetry import metrics, spans
+
+    t_phase = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_phase
+
+    ctx = mp.get_context("spawn")
+    nodes = {}  # name -> {"proc", "conn", "shared", "info"}; lives kept in `lives`
+    lives = collections.defaultdict(list)  # name -> [node record per life]
+
+    def launch(name, port=0):
+        parent, child = ctx.Pipe()
+        shared = ctx.Array("q", 3)
+        proc = ctx.Process(target=_gateway_node, args=(name, n_obs, port, dev, shared, child),
+                           daemon=True)
+        proc.start()
+        rec = {"name": name, "proc": proc, "conn": parent, "shared": shared}
+        lives[name].append(rec)
+        nodes[name] = rec
+        return rec
+
+    def expect(rec, key, timeout=300.0):
+        if not rec["conn"].poll(timeout):
+            raise TimeoutError(f"gateway node {rec['name']} did not answer within {timeout} s")
+        msg = rec["conn"].recv()
+        if "error" in msg:
+            raise RuntimeError(f"gateway node {rec['name']} failed:\n{msg['error']}")
+        assert key in msg, msg
+        return msg
+
+    def bind(rec):
+        rec["conn"].send("bind")
+        rec["info"] = expect(rec, "port", timeout=120.0)
+        return rec["info"]["port"]
+
+    def counts(rec):
+        with rec["shared"].get_lock():
+            return {"launches": rec["shared"][0], "requests": rec["shared"][1],
+                    "windows": rec["shared"][2]}
+
+    def stop(rec):
+        try:
+            rec["conn"].send("stop")
+        except (OSError, ValueError):
+            pass
+        rec["proc"].join(timeout=30)
+        if rec["proc"].is_alive():
+            rec["proc"].kill()
+            rec["proc"].join()
+
+    pool = gw = scaler = None
+    spans_were = spans.enabled()
+    try:
+        for name in ("A", "B"):
+            launch(name)
+        for name in ("A", "B"):
+            expect(nodes[name], "built")
+        ports = {name: bind(nodes[name]) for name in ("A", "B")}
+        mark("spawn")
+        on_card = all(r["info"]["cuda"].startswith(dev) for r in nodes.values())
+
+        # The requests' parameter sets, and each sent alone to a node.
+        rng = np.random.default_rng(seed)
+        _, true_offsets = pft.generate_node_data(8, n_obs=8, seed=123, device="cpu")
+        params = [(np.float32(1.5 + 0.1 * rng.normal()), np.float32(2.0 + 0.1 * rng.normal()),
+                   np.float32(math.log(0.5) + 0.05 * rng.normal()),
+                   (true_offsets + 0.05 * rng.normal(size=8)).astype(np.float32))
+                  for _ in range(GATEWAY_DISTINCT)]
+        alone = {}
+        for name in ("A", "B"):
+            client = TcpArraysClient("127.0.0.1", ports[name], timeout_s=120.0)
+            try:
+                picks = range(GATEWAY_DISTINCT) if name == "A" else range(16)
+                alone[name] = {d: b"".join(np.asarray(o).tobytes() for o in client.evaluate(*params[d]))
+                               for d in picks}
+            finally:
+                client.close()
+        replicas_agree = all(alone["B"][d] == alone["A"][d] for d in alone["B"])
+        reference = alone["A"]
+        mark("reference")
+
+        # The pool (round robin, so every live replica takes windows; a
+        # breaker opens on the first failed window; the probe thread
+        # closes it once a restarted node answers) and the gateway.
+        pool = NodePool([("127.0.0.1", ports[n]) for n in ("A", "B")], transport="tcp",
+                        policy="round_robin", probe_interval_s=0.25,
+                        breaker_kwargs={"failure_threshold": 1})
+        ok_windows = collections.Counter()  # (replica port, life) -> windows answered
+        ok_requests = collections.Counter()
+        failed_windows = collections.Counter()
+        life_of = {ports[n]: (n, 0) for n in ("A", "B")}
+        record = pool.record_result
+
+        def counting_record(replica, ok, *, latency_s=None, n_requests=1):
+            # The gateway reports every upstream window here (the probe
+            # thread does not): a success with its latency, a failure.
+            key = life_of.get(replica.port, (replica.address, 0))
+            if ok and latency_s is not None:
+                ok_windows[key] += 1
+                ok_requests[key] += n_requests
+            elif not ok:
+                failed_windows[key] += 1
+            return record(replica, ok, latency_s=latency_s, n_requests=n_requests)
+
+        pool.record_result = counting_record
+        pool.start()
+        spans.set_enabled(True)  # the gateway's metric families count with telemetry on
+        gw = GatewayThread(pool, fairness=TenantFairness(**GATEWAY_QUOTA),
+                           upstream_timeout_s=GATEWAY_UPSTREAM_TIMEOUT_S)
+        gw_port = gw.start()
+        hist = {k: metrics.REGISTRY.get(k) for k in ("pftpu_gateway_window_requests",
+                                                      "pftpu_gateway_upstream_seconds",
+                                                      "pftpu_gateway_queue_wait_seconds")}
+        shed = metrics.REGISTRY.get("pftpu_gateway_shed_total").labels(reason="expired_arrival")
+        base = {"windows": hist["pftpu_gateway_window_requests"].count,
+                "window_reqs": hist["pftpu_gateway_window_requests"].sum,
+                "upstream_n": hist["pftpu_gateway_upstream_seconds"].count,
+                "upstream_s": hist["pftpu_gateway_upstream_seconds"].sum,
+                "shed": shed.value}
+        for name in ("A", "B"):  # counts to 0 just before the drive
+            nodes[name]["conn"].send("reset")
+            expect(nodes[name], "reset")
+
+        uid_of = lambda rnd, rid: struct.pack("<QQ", rnd, rid)
+        tenant_of, distinct_of = {}, {}
+
+        def plan(rnd, items_by_tenant, conn_ids, pace_s, deadline_s=None):
+            """Connections' item lists: each tenant's items evenly over
+            ``pace_s`` seconds, dealt round robin over its connections."""
+            conns = {c: [] for ids in conn_ids.values() for c in ids}
+            for tenant, items in items_by_tenant.items():
+                ids = conn_ids[tenant]
+                for i, (rid, d) in enumerate(items):
+                    p = params[d]
+                    frame = encode_arrays(list(p), uuid=uid_of(rnd, rid), tenant=tenant,
+                                          deadline_s=deadline_s.get(rid) if deadline_s else None)
+                    tenant_of[(rnd, rid)], distinct_of[(rnd, rid)] = tenant, d
+                    conns[ids[i % len(ids)]].append(
+                        {"id": (rnd, rid), "at": i * pace_s / max(len(items), 1), "frame": frame})
+            for items in conns.values():
+                items.sort(key=lambda it: it["at"])
+            return list(conns.values())
+
+        conn_ids = {"hog": [c for c in range(GATEWAY_CONNECTIONS) if c % 2 == 0]}
+        for m, tenant in enumerate(GATEWAY_TENANTS[1:]):
+            conn_ids[tenant] = [c for c in range(GATEWAY_CONNECTIONS) if c % 2 and (c // 2) % 3 == m]
+        by_tenant = {t: [] for t in GATEWAY_TENANTS}
+        for rid in range(requests):
+            tenant = "hog" if rid % 2 == 0 else GATEWAY_TENANTS[1 + (rid // 2) % 3]
+            by_tenant[tenant].append((rid, rid % GATEWAY_DISTINCT))
+        expired = {}
+        for k in range(GATEWAY_EXPIRED):  # spread over the tenants and the offer
+            rid = requests + k
+            tenant = GATEWAY_TENANTS[k % 4]
+            by_tenant[tenant].insert((k * len(by_tenant[tenant])) // GATEWAY_EXPIRED,
+                                     (rid, rid % GATEWAY_DISTINCT))
+            expired[rid] = 0.0  # a spent budget
+
+        # A third of the way in, SIGKILL node A and restart it on its port.
+        sent = [0]
+        kill = {}
+
+        def restart_a():
+            try:
+                rec = launch("A", ports["A"])
+                expect(rec, "built")
+                life_of[ports["A"]] = ("A", 1)  # before it can serve a window
+                bind(rec)
+                kill["restarted_at_s"] = time.perf_counter() - t_phase
+            except Exception:
+                kill["error"] = traceback.format_exc()
+
+        def on_sent():
+            sent[0] += 1
+            if sent[0] == requests // 3:
+                kill["at_sent"] = sent[0]
+                kill["killed_at_s"] = time.perf_counter() - t_phase
+                lives["A"][0]["proc"].kill()  # SIGKILL: no shutdown
+                kill["thread"] = threading.Thread(target=lambda: (lives["A"][0]["proc"].join(30),
+                                                                  restart_a()), daemon=True)
+                kill["thread"].start()
+
+        main_conns = plan(0, by_tenant, conn_ids, offer_s, expired)
+        mark("planned")
+        results, main_wall = asyncio.run(_drive_gateway(gw_port, main_conns, on_sent))
+        mark("traffic")
+
+        def classify(rid_key, reply):
+            if reply is None:
+                return "hang", None
+            arrays, uuid, error, _tid, _sp = decode_arrays_all(reply)
+            if uuid != uid_of(*rid_key):
+                return "uuid", error
+            if error is None:
+                got = b"".join(np.asarray(a).tobytes() for a in arrays)
+                return ("ok" if got == reference[distinct_of[rid_key]] else "wrong"), None
+            if is_deadline_error(error):
+                return "deadline", error
+            if is_overload_error(error) and f"[tenant {tenant_of[rid_key]}]" in error:
+                return "denied", error
+            if is_overload_error(error):
+                return "upstream", error  # the gateway's failover ran out
+            return "error", error
+
+        outcome = {k: classify(k, body) for k, (body, _) in results.items()}
+        lat = collections.defaultdict(list)
+        for k, (body, dt) in results.items():
+            if outcome[k][0] == "ok":
+                lat[tenant_of[k]].append(dt)
+
+        # The hog's denied requests, retried at a pace under its quota
+        # until each is answered.
+        retry_rounds = []
+        final_of = {rid: (0, rid) for rid, _ in by_tenant["hog"] if rid < requests}
+        pending = [k for k, (o, _) in outcome.items() if o == "denied" and tenant_of[k] == "hog"]
+        for rnd in range(1, GATEWAY_RETRY_ROUNDS + 1):
+            if not pending:
+                break
+            items = [(k[1], distinct_of[k]) for k in pending]
+            final_of.update({rid: (rnd, rid) for rid, _ in items})
+            conns = plan(rnd, {"hog": items}, {"hog": conn_ids["hog"]},
+                         len(items) / GATEWAY_RETRY_RATE)
+            res, _ = asyncio.run(_drive_gateway(gw_port, conns))
+            got = {k: classify(k, body) for k, (body, _) in res.items()}
+            outcome.update(got)
+            retry_rounds.append(collections.Counter(o for o, _ in got.values()))
+            pending = [k for k, (o, _) in got.items() if o == "denied"]
+        mark("retries")
+
+        thread = kill.pop("thread", None)
+        if thread is not None:
+            thread.join(timeout=300)
+        if "error" in kill:
+            raise RuntimeError(f"the restarted node failed:\n{kill['error']}")
+        a_replica = pool.replica_at("127.0.0.1", ports["A"])
+        deadline = time.perf_counter() + 60
+        while a_replica.breaker.state != "closed" and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        mark("restart")
+
+        # Autoscaling: a burst of unpaced requests builds the fair queue
+        # past the threshold; the scaler's spawn starts node C on the card.
+        spawning = threading.Event()
+
+        def spawn_replica():
+            spawning.set()
+            rec = launch("C")
+            expect(rec, "built")
+            rec_port = bind(rec)
+            ports["C"] = rec_port
+            life_of[rec_port] = ("C", 0)
+            return ("127.0.0.1", rec_port, rec)
+
+        scaler = Autoscaler(pool, gw.server.signals, spawn_replica, stop, min_replicas=2,
+                            max_replicas=3, scale_up_queue_depth=GATEWAY_SCALE_UP_DEPTH,
+                            scale_down_queue_depth=-1.0, consecutive=1, cooldown_up_s=0.0,
+                            warmup_timeout_s=120.0, drain_grace_s=0.5, interval_s=0.01,
+                            transport="tcp")
+        scaler.start()
+        n_t, n_r = GATEWAY_BURST
+        burst_tenants = [f"burst-{i}" for i in range(n_t)]
+        bursts, burst_rps = 0, []
+        t_scale = time.perf_counter()
+        while not scaler.owned and time.perf_counter() - t_scale < 120.0:
+            if not spawning.is_set() and bursts < 8:  # stop pressing once the spawn runs
+                items = {t: [(i * n_r + j, (i * n_r + j) % GATEWAY_DISTINCT) for j in range(n_r)]
+                         for i, t in enumerate(burst_tenants)}
+                conns = plan(100 + bursts, items, {t: [i] for i, t in enumerate(burst_tenants)}, 0.0)
+                res, wall = asyncio.run(_drive_gateway(gw_port, conns))
+                outcome.update({k: classify(k, body) for k, (body, _) in res.items()})
+                burst_rps.append(len(res) / wall)
+                bursts += 1
+            else:
+                time.sleep(0.1)
+        scale_up_s = time.perf_counter() - t_scale
+        scaled = bool(scaler.owned)
+        mark("scale_up")
+        # Traffic after the scale-up: the new replica takes its share.
+        items = {t: [(i, i % GATEWAY_DISTINCT) for i in range(m, GATEWAY_AFTER, 3)]
+                 for m, t in enumerate(GATEWAY_TENANTS[1:])}
+        res, after_wall = asyncio.run(_drive_gateway(
+            gw_port, plan(200, items, {t: conn_ids[t] for t in items}, 1.0)))
+        outcome.update({k: classify(k, body) for k, (body, _) in res.items()})
+        c_rec = lives["C"][0] if lives["C"] else None
+        scaler.stop(drain_owned=True)  # leaves the pool, then stop() reaps it
+        c_drained = (c_rec is not None and not c_rec["proc"].is_alive()
+                     and pool.replica_at("127.0.0.1", ports.get("C") or -1) is None)
+        mark("after")
+
+        # Each node life's own counts (the shared counters outlive a
+        # SIGKILL), read just after the drive.
+        node_counts = {f"{name}{life}": counts(rec)
+                       for name, recs in lives.items() for life, rec in enumerate(recs)}
+        c_counts = node_counts.get("C0", {"launches": 0, "requests": 0, "windows": 0})
+        windows_sent = hist["pftpu_gateway_window_requests"].count - base["windows"]
+        window_reqs = hist["pftpu_gateway_window_requests"].sum - base["window_reqs"]
+        upstream_n = hist["pftpu_gateway_upstream_seconds"].count - base["upstream_n"]
+        upstream_s = hist["pftpu_gateway_upstream_seconds"].sum - base["upstream_s"]
+        launches = sum(c["launches"] for c in node_counts.values())
+        node_requests = sum(c["requests"] for c in node_counts.values())
+        # The window on node A when it was killed (if any) ran on A but was
+        # answered by B after the failover: A's first life may count one
+        # window (and its requests) more than the gateway saw answered.
+        a0 = node_counts.get("A0", {})
+        lost_windows = a0.get("windows", 0) - ok_windows[("A", 0)]
+        lost_requests = a0.get("requests", 0) - ok_requests[("A", 0)]
+        per_life_ok = all(
+            node_counts[f"{n}{life}"]["windows"] == ok_windows[(n, life)]
+            and node_counts[f"{n}{life}"]["requests"] == ok_requests[(n, life)]
+            for n, life in [("A", 1), ("B", 0), ("C", 0)] if f"{n}{life}" in node_counts)
+        on_kernel = dev == "cuda"
+        launch_ok = (
+            per_life_ok and lost_windows in (0, 1) and 0 <= lost_requests <= 32
+            and (lost_windows > 0 or lost_requests == 0)
+            and upstream_n == sum(ok_windows.values())
+            and windows_sent == upstream_n + sum(failed_windows.values())
+            and all((c["launches"] == c["windows"]) or not on_kernel for c in node_counts.values())
+        )
+        kinds = collections.Counter(o for o, _ in outcome.values())
+        main = {k: outcome[k] for k in results}
+        main_kinds = collections.Counter(o for o, _ in main.values())
+        ok_replies = kinds["ok"]
+        by_tenant_kind = {t: dict(collections.Counter(o for k, (o, _) in main.items()
+                                                      if tenant_of[k] == t))
+                          for t in GATEWAY_TENANTS}
+        denials = [e for k, (o, e) in main.items() if o == "denied"]
+        hog_denials = [e for k, (o, e) in main.items() if o == "denied" and tenant_of[k] == "hog"]
+        hog_final = [outcome[key][0] for key in final_of.values()]
+        fairness_ok = (
+            len(hog_denials) > 0 and len(denials) == len(hog_denials)
+            and all(e.startswith(OVERLOAD_ERROR_PREFIX) and "[tenant hog]" in e for e in hog_denials)
+            and all(o == "ok" for o in hog_final)
+        )
+        expired_kinds = collections.Counter(main[(0, requests + k)][0] for k in range(GATEWAY_EXPIRED))
+        shed_delta = shed.value - base["shed"]
+        shed_ok = (expired_kinds == {"deadline": GATEWAY_EXPIRED} and shed_delta == GATEWAY_EXPIRED
+                   and node_requests - max(lost_requests, 0) == ok_replies)
+        correct_ok = kinds["wrong"] == 0 and kinds["uuid"] == 0 and kinds["error"] == 0
+        failover_ok = (kinds["hang"] == 0 and node_counts.get("A1", {}).get("windows", 0) >= 1
+                       and "killed_at_s" in kill)
+        scale_ok = scaled and c_counts["windows"] >= 1 and c_drained
+        upstream_failed = sum(failed_windows.values())
+        q = lambda v, p: float(np.quantile(v, p)) * 1e3 if v else None
+        smi = _nvidia_smi() if dev == "cuda" else "cpu"
+        gates = {"on_card": on_card, "replicas_agree": replicas_agree, "correct": correct_ok,
+                 "one_launch_per_window": launch_ok,
+                 "coalesced": window_reqs / max(windows_sent, 1) > 1.0, "fairness": fairness_ok,
+                 "deadline_shed": shed_ok, "failover": failover_ok, "autoscale": scale_ok}
+        line = {
+            "phase": "gateway", "gates": gates, "card": smi, "size": [8, n_obs],
+            # Whether grpcio is installed here (looked up, not imported:
+            # this script runs no gRPC).
+            "grpcio_installed": importlib.util.find_spec("grpc") is not None,
+            "nodes": {f"{n}{i}": {k: r.get("info", {}).get(k) for k in ("pid", "device", "cuda")}
+                      for n, recs in lives.items() for i, r in enumerate(recs)},
+            "marks_s": marks, "cpu_count": os.cpu_count(),
+            "traffic": {"connections": GATEWAY_CONNECTIONS, "requests": requests,
+                        "expired": GATEWAY_EXPIRED, "offer_s": offer_s, "quota": GATEWAY_QUOTA,
+                        "wall_s": main_wall, "requests_per_s": len(results) / main_wall,
+                        "outcomes": dict(main_kinds), "by_tenant": by_tenant_kind},
+            "latency_ms": {t: {"n": len(v), "p50": q(v, 0.5), "p99": q(v, 0.99)}
+                           for t, v in lat.items()},
+            "windows": {"sent": windows_sent, "answered": upstream_n,
+                        "failed_attempts": dict((f"{n}{l}", v) for (n, l), v in failed_windows.items()),
+                        "requests_per_window": window_reqs / max(windows_sent, 1),
+                        "ms_per_window": upstream_s * 1e3 / max(upstream_n, 1),
+                        # Bucketed quantiles over the whole phase: the fair
+                        # queue's wait, and the upstream round trip (which
+                        # includes the wait for the replica's connection,
+                        # one window in flight on each).
+                        "queue_wait_ms": {f"p{int(p * 100)}": 1e3 * hist[
+                            "pftpu_gateway_queue_wait_seconds"].approx_quantile(p) for p in (0.5, 0.99)},
+                        "upstream_ms": {f"p{int(p * 100)}": 1e3 * hist[
+                            "pftpu_gateway_upstream_seconds"].approx_quantile(p) for p in (0.5, 0.99)},
+                        "answered_per_node_life": {f"{n}{l}": v for (n, l), v in ok_windows.items()},
+                        "lost_in_kill": {"windows": lost_windows, "requests": lost_requests}},
+            "nodes_counts": node_counts,
+            "failover": {"killed_at_s": kill.get("killed_at_s"), "at_sent": kill.get("at_sent"),
+                         "restarted_at_s": kill.get("restarted_at_s"),
+                         "upstream_failed": upstream_failed,
+                         "in_band_upstream_errors": kinds["upstream"], "hangs": kinds["hang"],
+                         "restarted_windows": node_counts.get("A1", {}).get("windows", 0)},
+            "retries": [dict(r) for r in retry_rounds],
+            "deadline": {"shed_total_delta": shed_delta, "replies": dict(expired_kinds)},
+            "autoscale": {"scaled_up": scaled, "seconds": scale_up_s, "bursts": bursts,
+                          "burst_requests_per_s": burst_rps, "new_node": c_counts,
+                          "drained": c_drained, "after_wall_s": after_wall},
+            "replies": {"ok": ok_replies, **{k: v for k, v in kinds.items() if k != "ok"}},
+            "node_requests": node_requests,
+            "kernel_launches": launches,
+        }
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        if gw is not None:
+            gw.stop()
+        if pool is not None:
+            pool.close()
+        spans.set_enabled(spans_were)
+        for recs in lives.values():
+            for rec in recs:
+                if rec["proc"].is_alive():
+                    stop(rec)
+    mark("stop")
+    return all(gates.values()), line
+
+
 def _draws_sha256(samples):
     """sha256 of the draws' bytes, leaves in sorted order."""
     h = hashlib.sha256()
@@ -2647,14 +3262,14 @@ def phase_model_check(dev="cuda", nuts=MODEL_CHECK_NUTS, data_kw=MODEL_CHECK_DAT
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
-                                           "slice7", "slice8"],
+                                           "slice7", "slice8", "slice9"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
                              "wide_logistic, logistic and chees only; slice6: device, build, "
                              "lgssm, gp and tempering only; slice7: device, build, families "
                              "and model_check only; slice8: device, build, nuts, federated "
-                             "and pool only")
+                             "and pool only; slice9: device, build and gateway only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2697,6 +3312,7 @@ def main() -> int:
          lambda: phase_nuts("nuts_large", LARGE_PATH[1], *NUTS_LARGE, dense_mass=True)),
         ("federated", lambda: phase_federated(lines.get("nuts", {}))),
         ("pool", lambda: phase_pool(lines.get("federated", {}))),
+        ("gateway", phase_gateway),
         ("radon", phase_radon),
         ("logistic", phase_logistic),
         ("lv_ode", phase_lv_ode),
@@ -2723,6 +3339,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("families", "model_check")]
     elif args.only == "slice8":
         phases = [ph for ph in phases if ph[0] in ("nuts", "federated", "pool")]
+    elif args.only == "slice9":
+        phases = [ph for ph in phases if ph[0] == "gateway"]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -2749,8 +3367,10 @@ def main() -> int:
         "replaces": "pytensor_federated_tpu/ops/pallas_kernels.py:78",
         # Counted from zero just before each NUTS phase, read just after
         # (in the federated phase, by the four node processes; in the pool
-        # phase, by the eight nodes, over its NUTS run and its windows).
-        "launches": sum(lines[p].get("kernel_launches", 0) for p in ("nuts", "nuts_large", "pool"))
+        # phase, by the eight nodes, over its NUTS run and its windows; in
+        # the gateway phase, by its nodes over the gateway's traffic).
+        "launches": sum(lines[p].get("kernel_launches", 0)
+                        for p in ("nuts", "nuts_large", "pool", "gateway"))
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

@@ -15,9 +15,11 @@ filter, parallel tempering (``samplers.pt_sample``) and FLOP accounting
 passes ``device="cpu"``.
 
 The federation wire: a node serves its logp+grad over npwire frames on
-TCP (:mod:`.service`), byte for byte the JAX package's frames, and a
-driver fans out to its nodes with :class:`ParallelLogpGrad`.  This
-package imports neither JAX, nor the JAX package, nor gRPC.
+gRPC or TCP (:mod:`.service`), byte for byte the JAX package's frames,
+and a driver fans out to its nodes with :class:`ParallelLogpGrad`; a
+gateway (:mod:`.gateway`) fronts a replica pool for many tenants.  This
+package imports neither JAX nor the JAX package, and it imports
+``grpc`` only at the first gRPC call.
 """
 
 from . import flopcount, precision, samplers

@@ -4,13 +4,14 @@ The reference balances once at connect time (GetLoad poll + least-
 loaded pick, reference: service.py:240-263) and then pins: every call
 rides whichever server the client first connected to, so one slow or
 dead node stalls the whole graph.  This subsystem sits ABOVE both
-transports (TCP ``service.tcp``, shared memory ``service.shm`` and
-descriptor rings ``service.ring``; the gRPC lane is not ported yet)
-and routes every call:
+transports (gRPC ``service.client``, TCP ``service.tcp``, shared
+memory ``service.shm`` and descriptor rings ``service.ring``) and
+routes every call:
 
 - :class:`NodePool` — the replica registry: static list plus late
-  add/remove, background health probing over the zero-item TCP probe
-  frame (which the shm and ring doorbells answer too), stale-load eviction, and one
+  add/remove, background health/load probing over the GetLoad lane
+  (gRPC) and the zero-item TCP probe frame (which the shm and ring
+  doorbells answer too), stale-load eviction, and one
   :class:`CircuitBreaker` per replica (half-open probing, jittered
   exponential backoff).
 - :mod:`.policies` — pluggable pick policies: round-robin, EWMA

@@ -327,13 +327,6 @@ class NodePool:
         client_kwargs: Optional[dict] = None,
     ) -> Replica:
         addr = f"{host}:{int(port)}"
-        if (transport or self.transport) == "grpc":
-            # No gRPC replica can be made in the port yet: loud at
-            # registration, never a replica that a later call would
-            # have to refuse.
-            from ..service._grpc_lane import grpc_lane_unavailable
-
-            grpc_lane_unavailable(f"pool replica {addr}")
 
         def on_transition(old: str, new: str, _addr: str = addr) -> None:
             _POOL_BREAKER_TRANSITIONS.labels(to=new).inc()
@@ -449,9 +442,14 @@ class NodePool:
             else:
                 kwargs = {}
             if replica.transport == "grpc":
-                from ..service._grpc_lane import grpc_lane_unavailable
+                from ..service.client import ArraysToArraysServiceClient
 
-                grpc_lane_unavailable(f"a client for {replica.address}")
+                replica.client = ArraysToArraysServiceClient(
+                    replica.host,
+                    replica.port,
+                    retries=0,
+                    **kwargs,
+                )
             elif replica.transport == "shm":
                 from ..service.shm import ShmArraysClient
 
@@ -498,11 +496,21 @@ class NodePool:
     # -- probing ----------------------------------------------------------
 
     async def _probe_replica_grpc(self, replica: Replica) -> bool:
-        """The GetLoad probe: the gRPC lane's, which the port does not
-        carry yet (:mod:`..service._grpc_lane`)."""
-        from ..service._grpc_lane import grpc_lane_unavailable
+        from ..service.client import get_load_async
 
-        grpc_lane_unavailable(f"the GetLoad probe of {replica.address}")
+        if _fi.active_plan is not None:  # chaos seam: probe lane
+            # The async twin: a delay rule must not block the event
+            # loop.
+            if not await _fi.probe_filter_async(replica.address):
+                replica.record_load(None)
+                return False
+        t0 = time.perf_counter()
+        load = await get_load_async(
+            replica.host, replica.port, timeout=self.probe_timeout_s
+        )
+        _POOL_PROBE_S.observe(time.perf_counter() - t0)
+        replica.record_load(load)
+        return load is not None
 
     async def probe_once_async(self) -> int:
         """One concurrent probe sweep, dispatched PER REPLICA (mixed

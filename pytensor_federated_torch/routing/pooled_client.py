@@ -48,6 +48,7 @@ import asyncio
 import contextlib
 import contextvars
 import math
+import sys
 import threading
 import time
 from functools import lru_cache
@@ -98,11 +99,24 @@ class _LatencyRing:
 
 def _grpc_classifier() -> tuple:
     """``(AioRpcError, _is_retryable)`` of the gRPC lane, or ``(None,
-    None)`` where there is none.  The port carries no gRPC lane yet
-    (:mod:`..service._grpc_lane`): no replica can raise an
-    ``AioRpcError``, so every failure is classified by its Python
-    type, and ``grpc`` is never imported."""
-    return None, None
+    None)`` while ``grpc`` is not loaded: until it is, no replica can
+    have raised an ``AioRpcError``, so every failure is classified by
+    its Python type, and a pool that rides only tcp/shm/ring never
+    imports ``grpc`` (nor needs ``grpcio``)."""
+    if "grpc" not in sys.modules:
+        return None, None
+    return _grpc_classifier_loaded()
+
+
+@lru_cache(maxsize=1)
+def _grpc_classifier_loaded() -> tuple:
+    """Resolve ``(AioRpcError, _is_retryable)`` ONCE — the classifier
+    runs per call result, and an import per call in that hot path
+    costs on every failure."""
+    from ..service._grpc import grpc
+    from ..service.client import _is_retryable
+
+    return grpc.aio.AioRpcError, _is_retryable
 
 
 @lru_cache(maxsize=1)

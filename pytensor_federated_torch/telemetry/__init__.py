@@ -17,8 +17,7 @@ A process that imports both packages holds two separate registries.
   on their replies.
 
 - :mod:`.collector` — the fleet plane: harvest every replica's
-  snapshot over HTTP ``/snapshot`` (the GetLoad lane is gRPC's, not
-  ported yet), merge (counters summed, histograms bucket-wise, gauges
+  snapshot over gRPC GetLoad or HTTP ``/snapshot``, merge (counters summed, histograms bucket-wise, gauges
   per replica) with loud staleness marking, estimate per-replica clock
   offsets, and interleave all flight records into one timeline.
 - :mod:`.critpath` — critical-path analysis over reunion-merged span

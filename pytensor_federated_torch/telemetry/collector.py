@@ -451,12 +451,6 @@ class FleetCollector:
         history: int = 64,
         observers: Iterable[Callable[["FleetSnapshot"], Any]] = (),
     ):
-        if targets:
-            # The GetLoad lane is gRPC's: loud at construction, never a
-            # collector whose every sweep marks these targets stale.
-            from ..service._grpc_lane import grpc_lane_unavailable
-
-            grpc_lane_unavailable("FleetCollector(targets=...)")
         self._targets = [_as_addr(t) for t in targets]
         if isinstance(http_targets, Mapping):
             self._http_targets: List[Tuple[str, int]] = []
@@ -642,9 +636,20 @@ class FleetCollector:
                 )
                 load = None
             else:
-                from ..service._grpc_lane import grpc_lane_unavailable
+                from ..service.client import get_node_telemetry_async
 
-                grpc_lane_unavailable(f"the GetLoad scrape of {record_as}")
+                load = await get_node_telemetry_async(
+                    host, port, timeout=self.timeout_s
+                )
+                telemetry = None if load is None else load["telemetry"]
+                if load is not None:
+                    # The telemetry payload already lands on the
+                    # scrape's own fields; keeping it inside .load too
+                    # would hold (and serialize) every replica's full
+                    # snapshot twice across the whole history ring.
+                    load = {
+                        k: v for k, v in load.items() if k != "telemetry"
+                    }
             if telemetry is None:
                 raise ConnectionError(
                     "no telemetry reply (unreachable, npproto-wire, or "

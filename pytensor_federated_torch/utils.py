@@ -1,5 +1,5 @@
-"""Shared constants, device resolution, a minimal pytree walker and the
-host transport's per-thread event loop.
+"""Shared constants, device resolution, a minimal pytree walker, the
+load-balancing pick and the host transport's per-thread event loop.
 
 The port keeps its own copy of what it needs from the JAX package's
 ``utils.py`` (it imports nothing from that package), and replaces
@@ -13,7 +13,7 @@ from __future__ import annotations
 import asyncio
 import math
 import threading
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
@@ -109,6 +109,29 @@ def solve_or_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     singular, with no host sync (see :func:`cholesky_or_nan`)."""
     x, info = torch.linalg.solve_ex(a, b, check_errors=False)
     return torch.where((info == 0)[..., None, None], x, torch.nan)
+
+
+T = TypeVar("T")
+
+
+def argmin_none_or_func(
+    items: Sequence[Optional[T]], func: Callable[[T], float]
+) -> Optional[int]:
+    """Index of the item minimizing ``func``, ignoring ``None`` entries.
+
+    Returns ``None`` if every item is ``None``.  The gRPC client's load
+    balancing picks the least-loaded healthy server with it (``None``
+    marks an unresponsive one); ties go to the first.
+    """
+    best_i: Optional[int] = None
+    best_v: Optional[float] = None
+    for i, item in enumerate(items):
+        if item is None:
+            continue
+        v = func(item)
+        if best_v is None or v < best_v:
+            best_i, best_v = i, v
+    return best_i
 
 
 _thread_loops = threading.local()

@@ -721,3 +721,103 @@ def test_micro_batcher_over_the_kernel_on_the_card():
         assert not isinstance(got, Exception)
         for g, s in zip(got, compute(*r)):
             assert np.asarray(g).tobytes() == np.asarray(s).tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [5, 32])
+def test_gateway_window_on_the_card_is_one_launch(w):
+    """W requests pipelined through a ``GatewayThread`` in front of an
+    in-process TCP node on the card: the gateway coalesces them into
+    upstream windows (the window histogram's count), the node runs each
+    window as one kernel launch, and each reply equals that request sent
+    alone to the node, bit for bit."""
+    import socket
+    import struct
+    import threading
+
+    from pytensor_federated_torch.gateway import GatewayThread
+    from pytensor_federated_torch.routing import NodePool
+    from pytensor_federated_torch.service import TcpArraysClient, npwire, serve_tcp_once
+    from pytensor_federated_torch.telemetry import metrics, spans
+
+    dev = _cuda()
+    compute, requests = _window_node(dev)
+    ready, ports = threading.Event(), []
+    threading.Thread(target=serve_tcp_once, args=(compute,), daemon=True,
+                     kwargs={"max_connections": 4, "concurrent": True,
+                             "ready_callback": lambda p: (ports.append(p), ready.set())}).start()
+    assert ready.wait(30)
+    node = TcpArraysClient("127.0.0.1", ports[0], timeout_s=60)
+    pool = NodePool([("127.0.0.1", ports[0])], transport="tcp")
+    reqs = requests(w)
+    frames = [npwire.encode_arrays(list(r), uuid=i.to_bytes(16, "little"), tenant="t")
+              for i, r in enumerate(reqs)]
+    window_reqs = metrics.REGISTRY.get("pftpu_gateway_window_requests")
+
+    def exchange(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            s.settimeout(60)
+            s.sendall(b"".join(struct.pack("<I", len(f)) + f for f in frames))
+            out = []
+            for _ in frames:
+                (n,) = struct.unpack("<I", s.recv(4, socket.MSG_WAITALL))
+                out.append(npwire.decode_arrays_all(s.recv(n, socket.MSG_WAITALL)))
+            return out
+
+    telemetry_was = spans.enabled()
+    spans.set_enabled(True)  # the gateway's window histogram counts with telemetry on
+    gw = GatewayThread(pool, frame_items=32)
+    try:
+        gw.start()
+        exchange(gw.port)  # the node's first vmapped call of this shape
+        torch.cuda.synchronize()
+        launches, windows = linreg_reductions.launches, window_reqs.count
+        replies = exchange(gw.port)
+        sent = window_reqs.count - windows
+        assert sent >= 1 and linreg_reductions.launches - launches == sent
+        singles = [node.evaluate(*r) for r in reqs]
+        for (arrays, uuid, error, _tid, _sp), single, i in zip(replies, singles, range(w)):
+            assert error is None and uuid == i.to_bytes(16, "little")
+            for g, s in zip(arrays, single):
+                assert np.asarray(g).tobytes() == np.asarray(s).tobytes()
+    finally:
+        spans.set_enabled(telemetry_was)
+        gw.stop()
+        pool.close()
+        node.close()
+
+
+@pytest.mark.gpu
+def test_grpc_node_on_the_card_is_one_launch_per_batch_frame():
+    """A gRPC ``ArraysToArraysService`` over the kernel on the card: a
+    batched ``evaluate_many`` of 16 requests is one batch frame and one
+    kernel launch, each reply equal to the request alone, bit for bit.
+    The GPU host has no grpcio; there this skips and says so."""
+    import asyncio
+    import threading
+
+    dev = _cuda()
+    pytest.importorskip("grpc", reason="grpcio is absent on the GPU host; the gRPC lane is held "
+                                       "on the CPU")
+    from pytensor_federated_torch.service import ArraysToArraysServiceClient, serve
+
+    compute, requests = _window_node(dev)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    server = asyncio.run_coroutine_threadsafe(serve(compute, port=0), loop).result(30)
+    try:
+        client = ArraysToArraysServiceClient("127.0.0.1", server.port)
+        reqs = requests(16)
+        client.evaluate_many(reqs, window=16)  # the first vmapped call of this shape
+        torch.cuda.synchronize()
+        before = linreg_reductions.launches
+        many = client.evaluate_many(reqs, window=16, batch=True)
+        assert linreg_reductions.launches - before == 1
+        for got, r in zip(many, reqs):
+            for g, s in zip(got, client.evaluate(*r)):
+                assert np.asarray(g).tobytes() == np.asarray(s).tobytes()
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(0), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX, nor the JAX
-package, nor gRPC, and its entry points never fall back to the CPU
-quietly."""
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, it imports gRPC only at the first gRPC call, and its entry
+points never fall back to the CPU quietly."""
 
 import ast
 import subprocess
@@ -20,7 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "pytensor_federated_tpu", "grpc")
 SUBPACKAGES = (
     "service", "telemetry", "faultinject", "routing", "ops", "signatures",
     "wrappers", "fanout_exec", "models", "parallel", "samplers", "precision",
-    "flopcount", "_assoc_scan",
+    "flopcount", "_assoc_scan", "gateway",
 )
 
 
@@ -63,13 +63,14 @@ def test_each_subpackage_alone_loads_no_jax_or_grpc(name):
     assert "BAD []" in out.stdout, out.stdout
 
 
-#: The host-federation modules of the replica pool and the colocated
-#: lanes: each must import, and run its gRPC seams, without gRPC.
+#: The host-federation modules of the replica pool, the lanes (gRPC's
+#: too) and the gateway: each must import without loading gRPC.
 FEDERATION_MODULES = (
     "utils", "service.npproto_codec", "service.batching", "service.arena", "service.shm",
-    "service.ring", "service._grpc_lane", "routing.breaker", "routing.budget", "routing.policies",
-    "routing.pool", "routing.pooled_client", "telemetry.collector", "telemetry.critpath",
-    "telemetry.slo", "telemetry.watchdog",
+    "service.ring", "service._grpc", "service.server", "service.client", "service.clients",
+    "routing.breaker", "routing.budget", "routing.policies", "routing.pool",
+    "routing.pooled_client", "telemetry.collector", "telemetry.critpath", "telemetry.slo",
+    "telemetry.watchdog", "gateway.fairness", "gateway.autoscale", "gateway.server",
 )
 
 
@@ -92,45 +93,87 @@ def test_each_federation_module_loads_no_jax_or_grpc():
     assert lines == [f"{name} BAD []" for name in FEDERATION_MODULES], out.stdout
 
 
-def test_grpc_seams_raise_without_loading_grpc():
-    """A pool or collector asked for the gRPC lane raises its named
-    error, and classifying failures on the other lanes never imports
-    ``grpc`` (it is installed here, so an import would succeed)."""
+def test_grpc_loads_only_at_the_first_grpc_call():
+    """Importing the package, the gateway and the gRPC lane's modules
+    (and their names through ``service.__getattr__``), building pools on
+    the default gRPC transport and classifying failures load no
+    ``grpc``; the first gRPC call (a GetLoad to a closed port) does."""
     code = (
-        "import sys\n"
+        "import asyncio, socket, sys\n"
+        "import pytensor_federated_torch, pytensor_federated_torch.gateway\n"
+        "import pytensor_federated_torch.service.server, pytensor_federated_torch.service.client\n"
         "from pytensor_federated_torch.routing import NodePool, pooled_client\n"
-        "from pytensor_federated_torch.service._grpc_lane import GrpcLaneUnavailable\n"
+        "from pytensor_federated_torch.service import (ArraysToArraysServiceClient,\n"
+        "    LogpGradServiceClient, get_load_async)\n"
         "from pytensor_federated_torch.telemetry import FleetCollector\n"
-        "raised = []\n"
-        "for make in (lambda: NodePool([('127.0.0.1', 1)]),\n"
-        "             lambda: FleetCollector(targets=['127.0.0.1:1'])):\n"
-        "    try:\n"
-        "        make()\n"
-        "    except GrpcLaneUnavailable:\n"
-        "        raised.append(True)\n"
-        "pool = NodePool(transport='tcp')\n"
-        "transient = [pool.is_transient(e) for e in (ConnectionError('x'), RuntimeError('x'))]\n"
+        "pool = NodePool([('127.0.0.1', 1)])\n"
+        "collector = FleetCollector(targets=['127.0.0.1:1'])\n"
+        "tcp = NodePool(transport='tcp')\n"
+        "transient = [tcp.is_transient(e) for e in (ConnectionError('x'), RuntimeError('x'))]\n"
         "checked = pooled_client._is_transport_error(OSError('x'))\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)})\n"
-        "print(raised, transient, checked, 'BAD', bad)\n"
+        "before = 'grpc' in sys.modules\n"
+        "with socket.socket() as s:\n"
+        "    s.bind(('127.0.0.1', 0))\n"
+        "    port = s.getsockname()[1]\n"
+        "load = asyncio.run(get_load_async('127.0.0.1', port, timeout=2.0))\n"
+        "print(pool.transport, transient, checked, before, load, 'grpc' in sys.modules,\n"
+        "      pooled_client._grpc_classifier()[0] is sys.modules['grpc'].aio.AioRpcError)\n"
+        "pool.close(); tcp.close()\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[True, True] [True, False] True BAD []", out.stdout
+    assert out.stdout.strip() == "grpc [True, False] True False None True True", out.stdout
+
+
+def test_grpc_lane_without_grpcio_raises_naming_it():
+    """Where ``grpcio`` is missing, the lane's modules still import, and
+    the first gRPC use raises ``ImportError`` naming ``grpcio`` instead
+    of carrying on over another lane."""
+    code = (
+        "import asyncio, sys\n"
+        "sys.modules['grpc'] = None  # as on a host without grpcio\n"
+        "from pytensor_federated_torch.routing import NodePool\n"
+        "from pytensor_federated_torch.service import ArraysToArraysServiceClient, serve\n"
+        "from pytensor_federated_torch.service.client import get_load_async\n"
+        "errors = []\n"
+        "for call in (lambda: ArraysToArraysServiceClient('127.0.0.1', 1).evaluate(1.0),\n"
+        "             lambda: asyncio.run(get_load_async('127.0.0.1', 1)),\n"
+        "             lambda: asyncio.run(serve(lambda x: [x], port=0)),\n"
+        "             lambda: NodePool([('127.0.0.1', 1)]).probe_once()):\n"
+        "    try:\n"
+        "        call()\n"
+        "        errors.append('no error')\n"
+        "    except ImportError as e:\n"
+        "        errors.append('grpcio' in str(e))\n"
+        "print(errors)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[True, True, True, True]", out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_statement_names_jax(path):
-    for node in ast.walk(ast.parse(path.read_text())):
+    """No import statement names JAX or the JAX package; ``grpc`` is
+    named only inside a function body (imported at first use)."""
+    tree = ast.parse(path.read_text())
+    in_function = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            in_function.update(id(n) for n in ast.walk(node) if n is not node)
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names = [node.module or ""]
         else:
             continue
-        assert not any(n.split(".")[0] in FORBIDDEN for n in names), (path, names)
+        forbidden = set(FORBIDDEN) - ({"grpc"} if id(node) in in_function else set())
+        assert not any(n.split(".")[0] in forbidden for n in names), (path, names)
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

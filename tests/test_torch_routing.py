@@ -8,7 +8,8 @@ pooled client) against the JAX package's.
   port's ``PooledArraysClient`` returns exactly one correct reply per
   request while a torch node is SIGKILLed in the middle of a window.
 - ``evaluate_reduced`` through a pool is equal across the packages.
-- The gRPC lane, not carried by the port yet, raises its named error.
+- The pool's default transport, gRPC, serves, probes and is classified
+  as the JAX package's is.
 
 Nodes bind ephemeral ports; every wait is bounded and every pool is
 closed.  The computes give integer-valued float64 replies, so replies
@@ -44,7 +45,6 @@ from pytensor_federated_torch.routing import budget as tbudget
 from pytensor_federated_torch.routing import policies as tpolicies
 from pytensor_federated_torch.routing import NodePool, PooledArraysClient
 from pytensor_federated_torch.routing import pooled_client as tpooled
-from pytensor_federated_torch.service import _grpc_lane
 from pytensor_federated_torch.service import ring as tring
 from pytensor_federated_torch.service import shm as tshm
 from pytensor_federated_torch.service import tcp as ttcp
@@ -301,11 +301,18 @@ def test_mixed_pool_fails_over_when_a_node_dies_mid_window(mixed_nodes):
         n = 280
         reqs = _requests(n)
 
-        async def run_with_kill():
-            asyncio.get_running_loop().call_later(0.1, proc.kill)  # SIGKILL mid-window
-            return await asyncio.wait_for(client.evaluate_many_async(reqs, window=8), TIMEOUT_S)
+        # SIGKILL 10 ms into the victim's own pass, so it dies mid-window
+        # (a timer from the start of the run fired after a fast host had
+        # answered every request, the victim's share included).
+        victim_pass = victim.client.evaluate_many_partial
 
-        results = asyncio.run(run_with_kill())
+        def pass_then_kill(*args, **kwargs):
+            threading.Timer(0.01, proc.kill).start()
+            return victim_pass(*args, **kwargs)
+
+        victim.client.evaluate_many_partial = pass_then_kill
+        results = asyncio.run(asyncio.wait_for(client.evaluate_many_async(reqs, window=8),
+                                               TIMEOUT_S))
         assert proc.wait(timeout=TIMEOUT_S) == -signal.SIGKILL
         # Exactly one reply per request, each its own.
         assert len(results) == n
@@ -374,34 +381,71 @@ def test_pool_of_both_packages_answers_alike(mixed_nodes):
 # --- the gRPC lane ------------------------------------------------------------
 
 
-def test_grpc_lane_raises_its_named_error():
-    pool = NodePool()  # the default transport is gRPC's
-    assert pool.transport == "grpc" and len(pool) == 0
-    with pytest.raises(_grpc_lane.GrpcLaneUnavailable, match="next slice of the port"):
-        pool.add_replica("127.0.0.1", 1)
-    with pytest.raises(_grpc_lane.GrpcLaneUnavailable, match="gRPC lane"):
-        NodePool([("127.0.0.1", 1)])
-    with pytest.raises(_grpc_lane.GrpcLaneUnavailable):
-        NodePool(transport="tcp").add_replica("127.0.0.1", 1, transport="grpc")
-    with pytest.raises(_grpc_lane.GrpcLaneUnavailable, match="FleetCollector"):
-        FleetCollector(targets=["127.0.0.1:1"])
-    with pytest.raises(_grpc_lane.GrpcLaneUnavailable):
-        PooledArraysClient([("127.0.0.1", 1)])
-    # The failure classifier never reaches for grpc.
-    assert tpooled._grpc_classifier() == (None, None)
-    assert issubclass(_grpc_lane.GrpcLaneUnavailable, NotImplementedError)
+def test_grpc_lane_calls_succeed_on_the_default_transport():
+    """What raised while the port had no gRPC lane now works: a
+    ``NodePool()`` on its default transport takes gRPC replicas, probes
+    them over GetLoad and serves through them, a mixed tcp pool takes a
+    gRPC replica, and ``FleetCollector(targets=...)`` scrapes GetLoad."""
+    pytest.importorskip("grpc", reason="grpcio is absent on the GPU host; the gRPC lane is held "
+                                       "on the CPU")
+    from pytensor_federated_torch.service import serve
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    compute = device_compute_fn(lambda x: [2.0 * x], device="cpu")
+    server = asyncio.run_coroutine_threadsafe(serve(compute, port=0), loop).result(TIMEOUT_S)
+    pools = []
+    try:
+        pool = NodePool()  # the default transport is gRPC's
+        pools.append(pool)
+        assert pool.transport == "grpc" and len(pool) == 0
+        pool.add_replica("127.0.0.1", server.port)
+        assert pool.probe_once() == 1
+        out = PooledArraysClient(pool).evaluate(np.arange(3.0))
+        assert out[0].tolist() == [0.0, 2.0, 4.0]
+        mixed = NodePool(transport="tcp")
+        pools.append(mixed)
+        mixed.add_replica("127.0.0.1", server.port, transport="grpc")
+        assert mixed.probe_once() == 1
+        listed = PooledArraysClient([("127.0.0.1", server.port)])
+        pools.append(listed.pool)
+        assert listed.evaluate(np.ones(2))[0].tolist() == [2.0, 2.0]
+        collector = FleetCollector(targets=[f"127.0.0.1:{server.port}"], include_local=False)
+        snap = collector.scrape_once()
+        assert snap.complete and f"127.0.0.1:{server.port}" in snap.replicas
+    finally:
+        for p in pools:
+            p.close()
+        asyncio.run_coroutine_threadsafe(server.stop(0), loop).result(TIMEOUT_S)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(TIMEOUT_S)
 
 
 def test_grpc_lane_error_is_not_failed_over():
-    """The named error is the caller's own fault to the pool: it is not
-    transient, so no pool retries it over another lane."""
+    """A gRPC status that marks the request's own fault (UNKNOWN: the
+    handler raised) is not transient to the pool, so no pool retries it
+    over another replica; UNAVAILABLE is, as are socket errors."""
+    grpc = pytest.importorskip("grpc", reason="grpcio is absent on the GPU host; the gRPC lane is "
+                                              "held on the CPU")
+    import pytensor_federated_torch.service.client  # noqa: F401  (the lane, loaded)
+
+    def rpc_error(code):
+        return grpc.aio.AioRpcError(code, grpc.aio.Metadata(), grpc.aio.Metadata(), details="x")
+
     pool = NodePool(transport="tcp")
+    jpool = JNodePool(transport="tcp")
     try:
-        err = _grpc_lane.GrpcLaneUnavailable("x")
-        assert not pool.is_transient(err)
-        assert pool.is_transient(ConnectionError("x"))
+        for p in (pool, jpool):
+            assert not p.is_transient(rpc_error(grpc.StatusCode.UNKNOWN))
+            assert not p.is_transient(rpc_error(grpc.StatusCode.DEADLINE_EXCEEDED))
+            assert p.is_transient(rpc_error(grpc.StatusCode.UNAVAILABLE))
+            assert p.is_transient(ConnectionError("x"))
+        assert not tpooled._is_transport_error(rpc_error(grpc.StatusCode.INVALID_ARGUMENT))
+        assert tpooled._is_transport_error(rpc_error(grpc.StatusCode.UNAVAILABLE))
     finally:
         pool.close()
+        jpool.close()
 
 
 def test_get_event_loop_alike():
