@@ -11,6 +11,8 @@
     python3 chip_smoke.py --only slice7    # device, build, families, model_check
     python3 chip_smoke.py --only slice8    # device, build, nuts, federated, pool
     python3 chip_smoke.py --only slice9    # device, build, gateway
+    python3 chip_smoke.py --only slice10   # device, build, nuts, vi, particles,
+                                           # sgld, sbc, checkpoint, demos
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -144,8 +146,8 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    (and bench_suite's < 1.2).
 12. ``lv_ode`` — config 4 (Lotka-Volterra, 8 shards, 128 RK4 steps):
    values against float64 on the CPU; ms (median of 20) and CUDA
-   launches (profiler) per logp+grad evaluation; ``find_map`` for 50
-   steps on the card against 50 steps in float64 on the CPU.  No NUTS:
+   launches (profiler) per logp+grad evaluation; ``find_map`` for 25
+   steps on the card against 25 steps in float64 on the CPU.  No NUTS:
    an evaluation is launch-bound at tens of ms.
 13. ``wide_logistic`` — config 7 (bench_suite.py:878): the logistic
    regression at 8 shards x 4,096 observations x 512 features (X is 64
@@ -166,8 +168,9 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    against its float64 version on the CPU (value rtol 1e-4; gradient
    rtol 1e-3, atol 1e-4: the JAX tests' tolerances), the parallel
    smoother against the sequential one at T = 512; ms per evaluation of
-   each form (the sequential one from its gate call: it is launch-bound,
-   ~11 s a call), their ratio, CUDA launches and FLOPs per evaluation
+   each form (the sequential one from one call at T / 4 after its gate
+   call, times 4: it is launch-bound, linear in T, ~11 s a call at T),
+   their ratio, CUDA launches and FLOPs per evaluation
    (the sequential form's counted at T = 32 and 64 and extrapolated:
    linear in T).
 16. ``gp`` — config 10 (bench_suite.py:1125): the federated exact GP at 8
@@ -182,7 +185,8 @@ it runs every phase and needs one card.  Phases, one JSON line each:
 17. ``tempering`` — config 12 (bench_suite.py:1435): parallel tempering
    on a 16-sigma bimodal in 8 dimensions, 2 stacks x 8 temperatures, 500
    warmup + 1,000 draws, against NUTS with 4 chains and jitter 5 at the
-   same lengths; each run once after a 20-iteration warm-up run; wall,
+   same lengths (its timed run replayed from a CUDA graph: the eager
+   run's draws); each run once after a 20-iteration warm-up run; wall,
    rank-normalized min-ESS/s, max R-hat, per-chain mode-balance error,
    batched evaluations and CUDA launches per iteration; gates PT balance
    < 0.3 and the NUTS control's > 0.35 (bench_suite.py:1555-1558).
@@ -212,8 +216,54 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    ``d_elpd`` beyond 2 of its ``d_se``; the observed share of zeros
    inside the predictive's central 90%; finite draws.
 
+20. ``vi`` — mean-field and full-rank ADVI, the RealNVP flow, Pathfinder
+   and multi-path Pathfinder on the flagship posterior through the kernel
+   (the Monte Carlo draws of a step are one batched evaluation, one
+   launch; Pathfinder's paths step in lockstep and the ELBO draws of every
+   point of every path are one launch).  The ADVI fits start from the MAP;
+   the flow fits the posterior whitened by the mean-field fit.  Each fit's
+   draws against the nuts phase's posterior (mean within 0.5 posterior
+   sd + 4 MCSE, sd within a factor 2; mean-field: the intercept's sd not
+   gated), and its first steps in float32 on the card against float64 on
+   the CPU with the same noise; launches equal batched evaluations.
+21. ``particles`` — tempered SMC (2,048 particles, C = 2,048) and the
+   ensemble sampler (64 walkers, C = 32) on the flagship through the
+   kernel from the MAP: means within 4 combined Monte Carlo standard
+   errors of the nuts phase's, SMC's final temperature 1, launches equal
+   batched evaluations; SMC's stages and host syncs.
+22. ``sgld`` — SGLD, pSGLD and SGHMC on the JAX tests' Gaussian targets at
+   their gates, on the pooled draws of independent chains run as one (4,
+   4 and 8 chains at a quarter of the JAX tests' draws), and
+   shard-subsampled SGLD on the flagship
+   (``logp_and_grad_minibatch`` over 4 of 8 shards) from the MAP, its
+   slope within 2 posterior sd of the nuts phase's.
+23. ``sbc`` — simulation-based calibration of NUTS on the JAX tests'
+   conjugate normal model, 32 simulations in one lockstep batch: the
+   uniformity screen passes, and the negative control's U-shaped ranks
+   fail it.
+24. ``checkpoint`` — ``sample_checkpointed`` on the flagship through the
+   kernel, 1 chain x (100 + 100) in chunks of 25: a run interrupted after
+   chunk 2 and resumed gives an uninterrupted run's draws bit for bit; a
+   changed config restarts from chunk 0.
+25. ``demos`` — ``run_node_pool`` in a child process starts three gRPC
+   demo nodes on the card; while they start, ``run_local(draws=50)`` on
+   the card recovers the slope through the kernel; ``run_remote(draws=
+   200)`` recovers the slope over the nodes; SIGTERM to the pool's
+   manager takes every node process and port away within 10 s.
+
 Phases 10-19 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
+
+Every phase runs under a deadline of three times its expected seconds
+(at least 60 s; ``PHASE_EXPECTED_S``), printed in its line.  At the
+deadline the script dumps every thread's stack to stderr, terminates and
+then kills every descendant process, prints a line naming the phase as
+timed out and exits 1.  After each phase, any descendant process still
+alive is reaped and fails the phase.  Before its last lines the script
+prints a ``leftovers`` line (live multiprocessing children, descendant
+processes, non-daemon threads other than the main one: all must be
+empty) and a ``timing`` line with every phase's seconds and deadline and
+the script's total.
 
 Then the kernel record line, the ``nvidia-smi`` line and, last, the
 device line.  With ``--only kernels`` it stops after the kernels phase,
@@ -223,7 +273,8 @@ with ``--only models`` the radon, logistic and lv_ode phases only, with
 only, with ``--only slice6`` the lgssm, gp and tempering phases only,
 with ``--only slice7`` the families and model_check phases only, with
 ``--only slice8`` the nuts, federated and pool phases only, with
-``--only slice9`` the gateway phase only;
+``--only slice9`` the gateway phase only, with ``--only slice10`` the nuts
+phase (the reference posterior) and phases 20-25;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -233,13 +284,17 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import hashlib
 import json
 import math
+import multiprocessing
 import os
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -273,6 +328,9 @@ TOL = {
     "gmu": ("abs_of_sum_abs", 2e-5),
     "gz": ("abs_of_sum_abs", 2e-5),
 }
+# gx of the slice-10 chain row (C = 2,560), against the sum of its terms'
+# magnitudes as gmu and gz (see _errors).
+GX_SUM_ABS = 2e-5
 # bench.py's equality gate for logp+grad implementations.
 AUTOGRAD_RTOL_VALUE, AUTOGRAD_RTOL_GRAD, AUTOGRAD_ATOL_GRAD = 2e-4, 2e-3, 1e-3
 
@@ -336,12 +394,164 @@ WIDE_TIMED_EVALS = 30
 CONFIG9_CHEES = (16, 200, 200)
 CONFIG9_JITTER, CONFIG9_SEED = 0.1, 1
 _BF16_PEAK = 989e12  # dense bf16 tensor-core rate of the H100 SXM (data sheet)
-LV_FIND_MAP = dict(num_steps=50, learning_rate=0.05)
+# 25 steps (50 until the slice-10 phases needed the time: the card's
+# steps took 10.7 s, each an eager RK4 evaluation; the float64 run on the
+# CPU halves too).
+LV_FIND_MAP = dict(num_steps=25, learning_rate=0.05)
 LV_FIND_MAP_ATOL = 1e-4  # log_theta, card against float64 on the CPU (CPU float32: 7e-8)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# Each phase runs under a deadline of DEADLINE_FACTOR times its expected
+# seconds, at least DEADLINE_MIN_S.  The expected seconds are the
+# phases' times on the H100 host (PERF.md section 5: PR 11's runs),
+# rounded up.
+PHASE_EXPECTED_S = {
+    "build": 10, "kernels": 20, "autograd": 5, "nuts": 95, "nuts_large": 100,
+    "federated": 85, "pool": 95, "gateway": 65, "radon": 20, "logistic": 20,
+    "lv_ode": 25, "wide_logistic": 5, "chees": 10, "lgssm": 50, "gp": 5,
+    "tempering": 80, "families": 10, "model_check": 80,
+    "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 15, "demos": 40,
+}
+DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
+# A process left behind gets this long after SIGTERM before SIGKILL.
+REAP_GRACE_S = 10.0
+
+
+def _deadline_s(name: str) -> float:
+    return max(DEADLINE_MIN_S, DEADLINE_FACTOR * PHASE_EXPECTED_S.get(name, 20))
+
+
+def _helper_pids() -> set:
+    """multiprocessing's resource tracker: a helper process that
+    ``spawn`` starts once and that exits when this process does (it reads
+    until its pipe from here closes), so no check counts it."""
+    from multiprocessing import resource_tracker
+
+    pid = getattr(resource_tracker._resource_tracker, "_pid", None)
+    return {pid} if pid else set()
+
+
+def _live_descendants() -> list:
+    """PIDs of every live (not zombie) descendant of this process, read
+    from /proc, multiprocessing's resource tracker aside.  ``main`` makes
+    the script a child subreaper, so an orphaned grandchild is
+    reparented to it and still counts."""
+    parent_of, state_of = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        parent_of[int(entry)], state_of[int(entry)] = int(fields[1]), fields[0]
+    children = {}
+    for pid, ppid in parent_of.items():
+        children.setdefault(ppid, []).append(pid)
+    out, stack, helpers = [], [os.getpid()], _helper_pids()
+    while stack:
+        for pid in children.get(stack.pop(), []):
+            stack.append(pid)
+            if state_of[pid] not in ("Z", "X") and pid not in helpers:
+                out.append(pid)
+    return sorted(out)
+
+
+def _close_thread_loop() -> list:
+    """Close the event loop the port's sync transport wrappers keep for
+    this thread (``utils.get_event_loop``), and its default executor's
+    worker threads with it.  Returns the executor threads it joined."""
+    from pytensor_federated_torch import utils
+
+    loop = getattr(utils._thread_loops, "loop", None)
+    if loop is None or loop.is_closed():
+        return []
+    before = {t.name for t in threading.enumerate()}
+    loop.run_until_complete(loop.shutdown_default_executor())
+    loop.close()
+    return sorted(before - {t.name for t in threading.enumerate()})
+
+
+def _reap(pids, grace=REAP_GRACE_S) -> list:
+    """SIGTERM ``pids``, SIGKILL what is still alive after ``grace``
+    seconds; returns the PIDs that needed the SIGKILL."""
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    end = time.monotonic() + grace
+    while time.monotonic() < end and set(pids) & set(_live_descendants()):
+        time.sleep(0.1)
+    killed = sorted(set(pids) & set(_live_descendants()))
+    for pid in killed:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for child in multiprocessing.active_children():  # joins the dead ones
+        child.join(timeout=1.0)
+    return killed
+
+
+class _Deadline:
+    """Fail a phase loudly when it outlives ``seconds``: dump every
+    thread's stack to stderr, terminate and then kill every descendant
+    process, print a line naming the phase as timed out, and exit 1.  A
+    hung phase thus ends the run with a name and a stack instead of on
+    an outside clock.  The watch is a daemon thread."""
+
+    def __init__(self, name: str, seconds: float):
+        self.name, self.seconds = name, seconds
+        self._done = threading.Event()
+
+    def _watch(self):
+        if self._done.wait(self.seconds):
+            return
+        sys.stderr.write(f"chip_smoke: phase {self.name} passed its deadline of "
+                         f"{self.seconds:.0f} s; every thread's stack:\n")
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        left = _live_descendants()
+        killed = _reap(left)
+        emit({"phase": self.name, "ok": False, "timed_out": True, "deadline_s": self.seconds,
+              "processes_reaped": left, "processes_killed": killed})
+        sys.stderr.flush()
+        os._exit(1)
+
+    def __enter__(self):
+        threading.Thread(target=self._watch, name=f"deadline-{self.name}", daemon=True).start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+
+
+def _leftovers() -> dict:
+    """What would outlive the script: live multiprocessing children,
+    live descendant processes and threads that are neither daemons nor
+    the main thread."""
+    return {
+        "active_children": [p.name for p in multiprocessing.active_children()],
+        "descendants": _live_descendants(),
+        "non_daemon_threads": [t.name for t in threading.enumerate()
+                               if not t.daemon and t is not threading.main_thread()],
+    }
+
+
+def _become_subreaper() -> bool:
+    """PR_SET_CHILD_SUBREAPER (Linux): orphaned grandchildren are
+    reparented to this process, so the leftover check sees them."""
+    try:
+        import ctypes
+
+        return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
 
 
 def _nvidia_smi() -> str:
@@ -380,24 +590,35 @@ def _case(S, N, seed, device):
     return scalars, offsets, x, y, mask
 
 
-def _errors(got, inputs):
+def _errors(got, inputs, gx_of_sum_abs=False):
     """Per-output error against the float64 plain version, as the ratio
-    to its tolerance (<= 1 passes), and the largest absolute error."""
+    to its tolerance (<= 1 passes; with a chain axis, the worst chain's),
+    and the largest absolute error.
+
+    ``gx_of_sum_abs`` measures gx as gmu and gz are, against GX_SUM_ABS
+    times the sum of its terms' magnitudes: among C = 2,560 random
+    parameter sets some slope lands on its generating value, gx then
+    cancels (-0.0018 against a sum of magnitudes of 7.98 in one shard),
+    and its error relative to |gx| fails in float32 whatever computes it
+    (the plain version in float32 on the CPU: 6.9 times the tolerance)."""
     from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions_ref
 
     scalars, offsets, x, y, mask = (t.double() for t in inputs)
-    ref = linreg_reductions_ref(scalars, offsets, x, y, mask)
-    inv_s2 = torch.exp(-2.0 * scalars[2])
-    r = y - ((scalars[0] + offsets[:, None]) + scalars[1] * x)
+    # Scalars (3,) or, with a chain axis, (C, 3); offsets (S,) or (C, S).
+    intercept, slope, log_sigma = (v[..., None] for v in scalars.unbind(-1))
+    ref = linreg_reductions_ref(scalars.unbind(-1), offsets, x, y, mask)
+    inv_s2 = torch.exp(-2.0 * log_sigma)
+    r = y - ((intercept[..., None] + offsets[..., None]) + slope[..., None] * x)
     sum_abs = {
-        "gmu": (mask * r.abs()).sum(1) * inv_s2,
-        "gz": (mask * (r * r * inv_s2 - 1.0).abs()).sum(1),
+        "gmu": (mask * r.abs()).sum(-1) * inv_s2,
+        "gz": (mask * (r * r * inv_s2[..., None] - 1.0).abs()).sum(-1),
+        "gx": (mask * (r * x).abs()).sum(-1) * inv_s2,
     }
     ratios, max_abs = {}, 0.0
     for name, k, rf in zip(("ll", "gmu", "gx", "gz"), got, ref):
         err = (k.double() - rf).abs()
         max_abs = max(max_abs, float(err.max()))
-        kind, tol = TOL[name]
+        kind, tol = ("abs_of_sum_abs", GX_SUM_ABS) if name == "gx" and gx_of_sum_abs else TOL[name]
         scale = rf.abs() if kind == "rel" else sum_abs[name]
         ratios[name] = float((err / (tol * scale.clamp_min(1e-30))).max())
     return ratios, max_abs
@@ -619,7 +840,7 @@ def _kernel_chains(bw, flops, flush):
     dev = torch.device("cuda")
     records, ok = [], True
     for S, N in (FLAGSHIP, LARGE_PATH):
-        for C in KERNEL_CHAINS:
+        for C in KERNEL_CHAINS + (SLICE10_LARGEST_C if (S, N) == FLAGSHIP else ()):
             inputs = _chain_case(S, N, C, seed=400 + C, device=dev)
             sc, off, x, y, m = inputs
             got, totals = linreg_reductions_and_totals(*inputs)
@@ -629,14 +850,12 @@ def _kernel_chains(bw, flops, flush):
             rerun = all(torch.equal(a, b) for a, b in zip(got + (totals,), again + (totals2,)))
             grid_bits = all(torch.equal(capped[..., :S, k], got[k]) for k in range(4)) and (
                 torch.equal(capped[..., S, :], totals))
-            alone_bits, worst, max_abs = True, {k: 0.0 for k in TOL}, 0.0
+            alone_bits = True
             for c in range(C):
                 one, one_totals = linreg_reductions_and_totals(sc[c], off[c], x, y, m)
                 alone_bits &= all(torch.equal(a, b[c]) for a, b in zip(one, got)) and (
                     torch.equal(one_totals, totals[c]))
-                ratios, err = _errors([g[c] for g in got], (sc[c], off[c], x, y, m))
-                worst = {k: max(worst[k], ratios[k]) for k in worst}
-                max_abs = max(max_abs, err)
+            worst, max_abs = _errors(got, inputs, gx_of_sum_abs=C in SLICE10_LARGEST_C)
             per_call, _ = _cuda_launches_per_call(lambda: linreg_reductions(*inputs))
             rec = {"shape": [S, N], "chains": C, "max_abs_err": max_abs, "err_over_tol": worst,
                    "bitwise_rerun": rerun, "bits_equal_capped_grid": grid_bits,
@@ -2647,6 +2866,7 @@ LGSSM = dict(T=4096, seed=7, d=2, k=1)
 LGSSM_VALUE_RTOL, LGSSM_GRAD_RTOL, LGSSM_GRAD_ATOL = 1e-4, 1e-3, 1e-4
 LGSSM_SMOOTHER_T = 512
 LGSSM_PAR_REPS = 30
+LGSSM_SEQ_TIME_DIV = 4  # the sequential filter is timed at T / 4, scaled to T
 LGSSM_COUNT_T = (32, 64)  # the sequential filter's launches and FLOPs, extrapolated
 # Config 10 (bench_suite.py:1125): FederatedExactGP on generate_gp_data(8,
 # n_obs=256, seed=9), sqexp; against float64 on the CPU at value rtol 1e-4
@@ -2735,15 +2955,17 @@ def phase_lgssm(dev="cuda", lgssm=LGSSM, smoother_t=LGSSM_SMOOTHER_T, par_reps=L
         call = lambda fn=fn, y=y: value_and_grad(lambda q: fn(q, y), params)
         t0 = time.perf_counter()
         if name == "seq":
-            # One timed call after the gate call, its warm-up (~11 s: the
-            # same operations repeat 4,096 times).  Its launches and FLOPs
-            # are linear in T (the same work per step, forward and
-            # backward), so they are counted at two short lengths and
+            # One timed call at T / LGSSM_SEQ_TIME_DIV after the gate call,
+            # its warm-up, scaled back to T: the same work repeats every
+            # step, forward and backward, so its time, launches and FLOPs
+            # are linear in T (the call at T = 4,096 took ~10.5 s).  The
+            # launches and FLOPs are counted at two short lengths and
             # extrapolated: the profiler's record of ~660,000 launches at
             # T = 4,096 costs minutes to process.
-            call()
+            t_timed = y.shape[0] // LGSSM_SEQ_TIME_DIV
+            value_and_grad(lambda q: fn(q, y[:t_timed]), params)
             _sync(dev)
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3 * (y.shape[0] / t_timed)
             counts = {}
             for t_small in LGSSM_COUNT_T:
                 small = lambda t_small=t_small: value_and_grad(
@@ -2758,6 +2980,8 @@ def phase_lgssm(dev="cuda", lgssm=LGSSM, smoother_t=LGSSM_SMOOTHER_T, par_reps=L
         else:
             ms = _ms_per_eval(call, dev, par_reps)
             launches, flops, extra = _launches(call, dev, 3), flopcount.flops_per_eval(call), {}
+        if name == "seq":
+            extra["timed_at_t"] = t_timed
         timing[name] = {"ms_per_logp_and_grad": ms, "reps": 1 if name == "seq" else par_reps,
                         "cuda_launches_per_eval": launches, "flops_per_eval": flops, **extra,
                         "seconds": time.perf_counter() - t0}
@@ -2772,8 +2996,9 @@ def phase_lgssm(dev="cuda", lgssm=LGSSM, smoother_t=LGSSM_SMOOTHER_T, par_reps=L
                  "f64_cpu": float(f64["seq"][0])},
         "timing": timing,
         "vs_baseline": ratio,
-        "vs_baseline_note": "sequential ms (one warm call) over parallel ms (median of the timed "
-                            "calls after 3 warm-ups) per logp+grad, same run, same precision",
+        "vs_baseline_note": "sequential ms (one warm call at T / 4, times 4) over parallel ms "
+                            "(median of the timed calls after 3 warm-ups) per logp+grad, same "
+                            "run, same precision",
     }
 
 
@@ -2900,10 +3125,10 @@ def phase_tempering(dev="cuda", pt_lengths=PT_LENGTHS, nuts_lengths=NUTS_LENGTHS
         return pft.samplers.pt_sample(counted, init, generator=gen, num_warmup=warmup,
                                       num_samples=draws, **PT_RUN)
 
-    def run_nuts(seed, warmup, draws):
+    def run_nuts(seed, warmup, draws, cuda_graph=False):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return pft.samplers.sample(counted, init, generator=gen, num_warmup=warmup,
-                                   num_samples=draws, **NUTS_CONTROL)
+                                   num_samples=draws, cuda_graph=cuda_graph, **NUTS_CONTROL)
 
     lines = {}
     for name, run, (warmup, draws) in (("pt", run_pt, pt_lengths), ("nuts", run_nuts, nuts_lengths)):
@@ -2918,13 +3143,22 @@ def phase_tempering(dev="cuda", pt_lengths=PT_LENGTHS, nuts_lengths=NUTS_LENGTHS
             on_card = _card_events(lambda: run(0, n_iter // 2, n_iter // 2), 1)
             launches = len(on_card) / n_iter
         evals = 0
+        # The NUTS control's timed run replays its evaluation from a CUDA
+        # graph (the eager run's draws, bit for bit; 36.9 s eager on the
+        # parent's card run): its balance gate is unchanged, its min-ESS/s
+        # is the graphed sampler's.
+        graphed = name == "nuts" and torch.device(dev).type == "cuda"
         _sync(dev)
         t0 = time.perf_counter()
-        res = run(PT_SEED if name == "pt" else NUTS_SEED, warmup, draws)
+        if graphed:
+            res = run(NUTS_SEED, warmup, draws, cuda_graph=True)
+            evals += res.extra["graph_replays"]
+        else:
+            res = run(PT_SEED if name == "pt" else NUTS_SEED, warmup, draws)
         _sync(dev)
         wall = time.perf_counter() - t0
         line = {"seed": PT_SEED if name == "pt" else NUTS_SEED, "warmup": warmup, "draws": draws,
-                "warm_up_run": {"iterations": warm, "wall_s": warm_s},
+                "cuda_graph": graphed, "warm_up_run": {"iterations": warm, "wall_s": warm_s},
                 "batched_evals": evals, "ms_per_batched_eval": wall * 1e3 / max(evals, 1),
                 "cuda_launches_per_iteration": launches, **_balance_and_ess(res, wall)}
         if name == "pt":
@@ -3259,18 +3493,720 @@ def phase_model_check(dev="cuda", nuts=MODEL_CHECK_NUTS, data_kw=MODEL_CHECK_DAT
     }
 
 
+
+# ---------------------------------------------------------------------------
+# Slice 10: variational inference, particle samplers, SGLD, SBC,
+# checkpointed sampling and the reference's demos, each on the flagship
+# (8 x 64) through the kernel where the JAX package runs the flagship.
+# Lengths are cut from the JAX defaults to fit each phase's budget
+# (PERF.md section 5); every phase prints its batched evaluations.
+# ---------------------------------------------------------------------------
+
+# A variational fit's posterior mean against the nuts phase's: within
+# VI_MEAN_SD of its posterior sd plus 4 of its Monte Carlo standard
+# errors; its sd within a factor VI_SD_FACTOR (mean-field: slope and
+# sigma only, since a factorized q understates the sd of the intercept,
+# which the offsets' ridge correlates).
+VI_MEAN_SD, VI_SD_FACTOR = 0.5, 2.0
+# ADVI, full-rank ADVI and the flow start from the MAP (find_map, 300
+# steps); their steps and learning rates are cut from the JAX defaults
+# (2,000 at 1e-2; 3,000 at 5e-3; 3,000 at 3e-3).  The flow fits the
+# posterior whitened by the mean-field fit (x = mean + sd * z), so that
+# its N(0, I) base starts at the posterior's scale: from the raw
+# coordinates (sds ~0.01-0.1 against the base's 1) it did not converge
+# in 800 steps.
+VI_MAP_STEPS = 300
+VI_STEPS = dict(advi=500, fullrank=1200, flow=300, pathfinder=40)
+VI_LR = dict(advi=2e-2, fullrank=1e-2, flow=5e-3)
+VI_FLOW = dict(num_layers=6, hidden=32, n_mc=16)
+# Full-rank ADVI draws 16 points per step (the JAX default 8): the Adam
+# noise left in the 55 off-diagonal entries of L adds to every row norm,
+# and at 8 draws and 800 steps it made the slope's sd 1.8-2.6 times the
+# posterior's (3 seeds on the CPU, one card run); at 16 and 1,200,
+# 1.3-1.6 (5 seeds).
+VI_FULLRANK_MC = 16
+VI_PATHS = 4
+VI_DRAWS = 1000
+# The card's float32 steps against the same steps in float64 on the CPU,
+# with the same noise: a few Adam steps (each update moves a parameter
+# by at most the learning rate; float32 gradients are exact to ~1e-6
+# relative) and the first L-BFGS iterates.
+VI_CHECK_STEPS, VI_CHECK_TOL = 5, dict(rtol=1e-3, atol=1e-4)
+# SMC and the ensemble sampler start from the MAP (find_map, 300 steps),
+# with the JAX defaults' particles and walkers.  SMC spreads its cloud by
+# the JAX default's 1.0 N(0, 1) and mutates 20 times per stage (the JAX
+# default's 5 random-walk steps, at ~15% acceptance, left the means up to
+# 0.8 posterior sd off in two seeds); the ensemble starts at 0.01 N(0,
+# 1) around the MAP (at its default 0.1 around the origin, 400 + 400
+# steps had not reached the posterior).
+SMC = dict(n_particles=2048, n_mutations=20, init_jitter=1.0)
+ENSEMBLE = dict(n_walkers=64, num_warmup=400, num_samples=400, init_jitter=0.01)
+PARTICLE_MCSE = 4.0  # means within 4 combined Monte Carlo standard errors
+# SGLD on the JAX tests' Gaussian targets (tests/test_sgld.py:83-179) at
+# their lengths, and shard-subsampled SGLD on the flagship.
+SGLD_FED = dict(num_samples=600, num_burnin=200, num_shards=4, a=1e-4)  # from the MAP
+# The Gaussian targets factorize and every update is elementwise, so
+# independent chains run as one; the gates read their pooled draws.
+# SGLD and SGHMC: SGLD_CHAINS chains, each a quarter of the JAX test's
+# draws after its full burn-in.  pSGLD's single-run gate (sd within 45%,
+# |mean| < 0.4 sd) fails about one run in twelve in either package (12
+# seeds each on the CPU: JAX 11/12, port 11/12; PR 11 run 2's card run of
+# one chain at the JAX test's length failed it at 0.53 sd), so it pools
+# PSGLD_CHAINS chains of a quarter length; chain 0 is recorded too.
+SGLD_CHAINS, PSGLD_CHAINS = 4, 8
+# SBC on tests/test_sbc.py's conjugate model at a size that fits.
+SBC = dict(n_sims=32, num_warmup=100, num_samples=64, thin=2, max_depth=4)
+# Checkpointed NUTS on the flagship through the kernel.
+# Trees are capped at depth 3 (8 leaves): the phase checks resumption,
+# not mixing, and at depth 6 its four runs took ~10,000 evaluations.
+CHECKPOINT = dict(num_warmup=100, num_samples=100, num_chains=1, checkpoint_every=25,
+                  max_depth=3)
+CHECKPOINT_CUT_AFTER = 2  # chunks persisted before the interruption
+# The demos: three gRPC nodes on the card, the remote driver's draws,
+# the local demo's draws, and how long the pool may take to go away.
+DEMO_PORTS, DEMO_REMOTE_DRAWS, DEMO_LOCAL_DRAWS, DEMO_TEARDOWN_S = 3, 200, 50, 10.0
+SLICE10 = ("vi", "particles", "sgld", "sbc", "checkpoint", "demos")
+# The largest chain batch the slice-10 phases launch at the flagship
+# size: multi-path Pathfinder's ELBO draws (paths x L-BFGS steps x 16
+# draws) and SMC's particles; the kernels phase holds it like the others.
+SLICE10_LARGEST_C = (max(VI_PATHS * VI_STEPS["pathfinder"] * 16, SMC["n_particles"]),)
+
+
+def _flagship_posterior(dev, f64=False):
+    """The flagship posterior through the kernel wrapper (the kernel on
+    CUDA, its plain version on the CPU): ``(model, posterior, init)``."""
+    import pytensor_federated_torch as pft
+
+    data, _ = pft.generate_node_data(8, n_obs=FLAGSHIP[1], seed=123, device=dev)
+    if f64:
+        data = _as_f64_cpu(data)
+    model = pft.FederatedLinearRegression(data)
+    (x, y), mask = data.tree()
+    kern = pft.linreg_logp_grad_fn(x, y, mask)
+    init = model.init_params()
+    if f64:
+        init = {k: v.double() for k, v in init.items()}
+    return model, (lambda p: model.prior_logp(p) + kern.data_logp(p)), init
+
+
+def _counted(fn, counts, key="evals"):
+    """``fn`` counting its calls: under ``vmap`` one call is one batched
+    evaluation."""
+
+    def counted(p):
+        counts[key] = counts.get(key, 0) + 1
+        return fn(p)
+
+    return counted
+
+
+def _moments(samples):
+    """Mean and sd of intercept, slope and sigma over every draw."""
+    derived = {"intercept": samples["intercept"], "slope": samples["slope"],
+               "sigma": torch.exp(samples["log_sigma"])}
+    return {k: {"mean": float(v.double().mean()), "sd": float(v.double().std())}
+            for k, v in derived.items()}
+
+
+def _against_nuts(moments, nuts_line, *, sd_keys=("intercept", "slope", "sigma")):
+    """Each quantity's mean within VI_MEAN_SD posterior sd + 4 MCSE of the
+    nuts phase's, and (for ``sd_keys``) its sd within VI_SD_FACTOR."""
+    ref = nuts_line.get("recovered", {})
+    out, ok = {}, bool(ref)
+    for k, m in moments.items():
+        r = ref.get(k)
+        if r is None:
+            ok = False
+            continue
+        mean_ok = abs(m["mean"] - r["mean"]) <= VI_MEAN_SD * r["sd"] + 4 * r["mcse"]
+        ratio = m["sd"] / r["sd"]
+        sd_ok = k not in sd_keys or 1 / VI_SD_FACTOR <= ratio <= VI_SD_FACTOR
+        out[k] = {**m, "nuts_mean": r["mean"], "nuts_sd": r["sd"], "sd_ratio": ratio,
+                  "mean_ok": mean_ok, "sd_ok": sd_ok}
+        ok &= mean_ok and sd_ok
+    return ok, out
+
+
+def _vi_f64_checks(dev):
+    """A few steps of each fit on ``dev`` in float32 against the same
+    steps in float64 on the CPU with the same noise: mean-field and
+    full-rank ADVI and the flow (Adam steps of their estimators), and
+    the first L-BFGS iterates of Pathfinder."""
+    from pytensor_federated_torch.ppl import elbo
+    from pytensor_federated_torch.samplers import advi, flows
+    from pytensor_federated_torch.samplers.util import flatten_logp
+    import importlib
+
+    pathfinder = importlib.import_module("pytensor_federated_torch.samplers.pathfinder")
+    runs = {}
+    for where, f64 in ((dev, False), ("cpu", True)):
+        _, post, init = _flagship_posterior(where, f64)
+        flat, x0, unravel = flatten_logp(post, init)
+        x0 = x0.detach()
+        d, dt = x0.shape[0], x0.dtype
+        gen = torch.Generator().manual_seed(31)
+        noise = lambda *shape: [torch.randn(shape, generator=gen, dtype=torch.float64).to(
+            dtype=dt, device=where) for _ in range(VI_CHECK_STEPS)]
+        batch = torch.func.vmap(flat)
+
+        def fit(estimator, var0, draws, lr):
+            it = iter(draws)
+            return elbo.scan_vi(lambda v, _g: estimator(v, next(it)), var0, generator=None,
+                                num_steps=VI_CHECK_STEPS, learning_rate=lr)
+
+        out = {}
+        mf = elbo.meanfield_neg_elbo(lambda x, _g: torch.mean(batch(x)), d, n_mc=8,
+                                     split_keys=False)
+        (mu, log_sd), _ = fit(mf, (x0, torch.full((d,), -2.0, dtype=dt, device=where)),
+                              noise(8, d), 1e-2)
+        out["advi"] = torch.cat([mu, log_sd])
+        tril = tuple(torch.tril_indices(d, d, device=where))
+        theta0 = torch.zeros(d * (d + 1) // 2, dtype=dt, device=where)
+        theta0[(torch.arange(d, device=where) * (torch.arange(d, device=where) + 3)) // 2] = -2.0
+        (mu, theta), _ = fit(advi.fullrank_neg_elbo(batch, d, 8, tril), (x0, theta0),
+                             noise(8, d), 5e-3)
+        out["fullrank"] = torch.cat([mu, theta])
+        base = (torch.arange(d, device=where) % 2).to(dt)
+        masks = torch.stack([base if i % 2 == 0 else 1.0 - base
+                             for i in range(VI_FLOW["num_layers"])])
+        w1 = noise(d, VI_FLOW["hidden"])[: VI_FLOW["num_layers"]]
+        flow0 = [flows._mlp_init(w, d, VI_FLOW["hidden"], d, x0) for w in w1]
+        flow, _ = fit(flows.flow_neg_elbo(batch, masks, x0, VI_FLOW["n_mc"]), flow0,
+                      noise(VI_FLOW["n_mc"], d), 3e-3)
+        out["flow"] = torch.cat([t.reshape(-1) for p in flow for t in p.values()])
+        counter = {"evals": 0, "elbo_evals": 0, "syncs": 0}
+        from pytensor_federated_torch.samplers.mcmc import make_batch_logp_and_grad
+
+        xs, _ = pathfinder._lbfgs_paths(make_batch_logp_and_grad(flat, unravel), x0[None],
+                                        3, counter)
+        out["pathfinder_iterates"] = xs.reshape(-1)
+        runs[where if not f64 else "f64"] = {k: v.detach().cpu().double() for k, v in out.items()}
+    res, ok = {}, True
+    for k, want in runs["f64"].items():
+        got = runs[dev][k]
+        err = (got - want).abs()
+        tol = VI_CHECK_TOL["atol"] + VI_CHECK_TOL["rtol"] * want.abs()
+        res[k] = {"max_abs_err": float(err.max()), "err_over_tol": float((err / tol).max())}
+        ok &= res[k]["err_over_tol"] <= 1.0
+    return ok, res
+
+
+def phase_vi(nuts_line, dev="cuda", steps=VI_STEPS, draws=VI_DRAWS):
+    """ADVI (mean-field and full-rank), the RealNVP flow, Pathfinder and
+    multi-path Pathfinder on the flagship through the kernel: the Monte
+    Carlo draws of a step (Pathfinder: the paths of an L-BFGS or line-
+    search step, then every ELBO draw of every point) are one batched
+    evaluation, one launch.  Each fit's draws against the nuts phase's
+    posterior, and its first steps against float64 on the CPU."""
+    import importlib
+
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.samplers import advi, find_map, flows
+
+    pf = importlib.import_module("pytensor_federated_torch.samplers.pathfinder")
+    _, post, init = _flagship_posterior(dev)
+    fits, counts, ok = {}, {}, True
+    gen = torch.Generator(device=dev).manual_seed(17)
+    _sync(dev)
+    linreg_reductions.launches = 0
+    t_all = time.perf_counter()
+
+    def run(name, fn, sd_keys=("intercept", "slope", "sigma")):
+        nonlocal ok
+        c = {}
+        t0 = time.perf_counter()
+        samples, extra = fn(_counted(post, c))
+        _sync(dev)
+        f_ok, vs = _against_nuts(_moments(samples), nuts_line, sd_keys=sd_keys)
+        finite = all(bool(torch.isfinite(v).all()) for v in samples.values())
+        fits[name] = {"seconds": time.perf_counter() - t0, "batched_evals": c.get("evals", 0),
+                      "ok": f_ok and finite, "against_nuts": vs, **extra}
+        counts[name] = c.get("evals", 0)
+        ok &= f_ok and finite
+
+    whiten = {}
+
+    def map_point(lp):
+        est = find_map(lp, init, num_steps=VI_MAP_STEPS, learning_rate=0.05)
+        whiten["map"] = est
+        return {k: v[None] for k, v in est.items()}, {"steps": VI_MAP_STEPS}
+
+    def mf(lp):
+        res, unravel = advi.advi_fit(lp, whiten["map"], generator=gen, num_steps=steps["advi"],
+                                     learning_rate=VI_LR["advi"])
+        whiten.update(loc=res.flat_mean.detach(), scale=torch.exp(res.flat_log_sd).detach(),
+                      unravel=unravel)
+        return res.sample(gen, draws, unravel), {
+            "steps": steps["advi"], "learning_rate": VI_LR["advi"], "n_mc": 8,
+            "final_elbo": float(res.elbo_trace[-1])}
+
+    def fr(lp):
+        res, unravel = advi.fullrank_advi_fit(lp, whiten["map"], generator=gen,
+                                              num_steps=steps["fullrank"],
+                                              learning_rate=VI_LR["fullrank"], n_mc=VI_FULLRANK_MC)
+        return res.sample(gen, draws, unravel), {
+            "steps": steps["fullrank"], "learning_rate": VI_LR["fullrank"], "n_mc": VI_FULLRANK_MC,
+            "final_elbo": float(res.elbo_trace[-1])}
+
+    def flow(lp):
+        loc, scale, unravel = whiten["loc"], whiten["scale"], whiten["unravel"]
+        res, z_unravel = flows.realnvp_advi_fit(
+            lambda p: lp(unravel(loc + scale * p["z"])), {"z": torch.zeros_like(loc)},
+            generator=gen, num_steps=steps["flow"], learning_rate=VI_LR["flow"], **VI_FLOW)
+        z = res.sample(gen, draws, z_unravel)["z"]
+        return unravel(loc + scale * z), {"steps": steps["flow"], "learning_rate": VI_LR["flow"],
+                                          **VI_FLOW, "whitened_by": "advi",
+                                          "final_elbo": float(res.elbo_trace[-1])}
+
+    def path(lp, multi=False):
+        c = {}
+        kw = dict(num_steps=steps["pathfinder"], num_draws=draws, counter=c)
+        res = (pf.multipath_pathfinder(lp, init, gen, num_paths=VI_PATHS, **kw) if multi
+               else pf.pathfinder(lp, init, gen, **kw))
+        return res.samples, {"lbfgs_steps": steps["pathfinder"], "elbo": float(res.elbo),
+                             "best_iter": int(res.best_iter), "best_path": int(res.best_path),
+                             "path_evals": c["evals"], "elbo_evals": c["elbo_evals"],
+                             "host_syncs": c["syncs"],
+                             "elbo_batch": (VI_PATHS if multi else 1) * steps["pathfinder"] * 16}
+
+    c_map = {}
+    t0 = time.perf_counter()
+    map_point(_counted(post, c_map))
+    fits["find_map"] = {"steps": VI_MAP_STEPS, "seconds": time.perf_counter() - t0,
+                        "batched_evals": c_map["evals"]}
+    counts["find_map"] = c_map["evals"]
+    run("advi", mf, sd_keys=("slope", "sigma"))
+    run("fullrank_advi", fr)
+    run("realnvp", flow)
+    run("pathfinder", path)
+    run("multipath_pathfinder", lambda lp: path(lp, multi=True))
+    wall = time.perf_counter() - t_all
+    launches = linreg_reductions.launches
+    evals = sum(counts.values())
+    f64_ok, f64 = _vi_f64_checks(dev)
+    launches_ok = launches == evals > 0 if dev == "cuda" else True
+    ok &= f64_ok and launches_ok
+    return ok, {
+        "phase": "vi", "size": list(FLAGSHIP), "wall_s": wall,
+        "tolerance": {"mean": f"{VI_MEAN_SD} nuts sd + 4 nuts mcse",
+                      "sd_factor": VI_SD_FACTOR, "f64_cpu": VI_CHECK_TOL,
+                      "f64_steps": VI_CHECK_STEPS},
+        "fits": fits, "batched_evals": evals, "kernel_launches": launches,
+        "launches_equal_batched_evals": launches_ok,
+        "ms_per_batched_eval": wall * 1e3 / max(evals, 1), "f64_cpu": f64,
+    }
+
+
+def _ensemble_mcse(x):
+    """Per-quantity Monte Carlo standard error of ensemble draws (steps,
+    walkers): each walker read as a chain."""
+    import pytensor_federated_torch as pft
+
+    chains = x.transpose(0, 1)  # (walkers, steps)
+    ess = float(pft.samplers.effective_sample_size({"q": chains})["q"])
+    return float(x.double().std()) / math.sqrt(max(ess, 1.0)), ess
+
+
+def phase_particles(nuts_line, dev="cuda", smc=SMC, ensemble=ENSEMBLE):
+    """Tempered SMC and the ensemble sampler on the flagship through the
+    kernel: a mutation is one batched evaluation of every particle (C =
+    n_particles), a half-ensemble update one of n_walkers / 2.  Means
+    within PARTICLE_MCSE combined Monte Carlo standard errors of the
+    nuts phase's; kernel launches equal batched evaluations; SMC's
+    stages and host syncs."""
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.samplers import ensemble_sample, find_map, smc_sample
+
+    _, post, init = _flagship_posterior(dev)
+    ref = nuts_line.get("recovered", {})
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out, ok = {"phase": "particles", "size": list(FLAGSHIP)}, bool(ref)
+    c = {}
+    _sync(dev)
+    linreg_reductions.launches = 0
+    t0 = time.perf_counter()
+    init = find_map(_counted(post, c), init, num_steps=VI_MAP_STEPS, learning_rate=0.05)
+    _sync(dev)
+    out["find_map"] = {"steps": VI_MAP_STEPS, "seconds": time.perf_counter() - t0,
+                       "batched_evals": c["evals"], "kernel_launches": linreg_reductions.launches}
+    ok &= linreg_reductions.launches == c["evals"] or dev != "cuda"
+    total_evals, launches_total = c["evals"], linreg_reductions.launches
+    for name in ("smc", "ensemble"):
+        c = {}
+        _sync(dev)
+        linreg_reductions.launches = 0
+        t0 = time.perf_counter()
+        if name == "smc":
+            res = smc_sample(_counted(post, c), init, generator=gen, **smc)
+            samples = res.samples
+            extra = {**smc, "stages": int(res.n_stages), "final_beta": float(res.final_beta),
+                     "host_syncs": res.host_syncs, "log_evidence": float(res.log_evidence),
+                     "accept_rate": float(res.accept_rate)}
+            stage_ok = float(res.final_beta) == 1.0
+        else:
+            res = ensemble_sample(_counted(post, c), init, generator=gen, **ensemble)
+            samples = res.samples
+            extra = {**ensemble, "accept_rate": float(res.accept_rate)}
+            stage_ok = 0.05 < float(res.accept_rate) < 0.95
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = linreg_reductions.launches
+        derived = {"intercept": samples["intercept"], "slope": samples["slope"],
+                   "sigma": torch.exp(samples["log_sigma"])}
+        flat = torch.cat([samples[k].reshape(samples[k].shape[0], -1) for k in sorted(samples)],
+                         dim=1)
+        distinct = torch.unique(flat, dim=0).shape[0]
+        if name == "smc":
+            extra["distinct_particles"] = distinct
+        checks = {}
+        for k, v in derived.items():
+            mean = float(v.double().mean())
+            if name == "smc":  # sd / sqrt(distinct particles): resampling duplicates some
+                ess = float(distinct)
+                mcse = float(v.double().std()) / math.sqrt(ess)
+            else:
+                mcse, ess = _ensemble_mcse(v)
+            r = ref.get(k, {"mean": math.nan, "mcse": math.nan, "sd": math.nan})
+            bound = PARTICLE_MCSE * math.hypot(mcse, r["mcse"])
+            checks[k] = {"mean": mean, "sd": float(v.double().std()), "mcse": mcse, "ess": ess,
+                         "nuts_mean": r["mean"], "nuts_sd": r["sd"], "bound": bound,
+                         "ok": abs(mean - r["mean"]) <= bound}
+        finite = all(bool(torch.isfinite(v).all()) for v in samples.values())
+        launch_ok = launches == c["evals"] > 0 if dev == "cuda" else True
+        p_ok = stage_ok and finite and launch_ok and all(v["ok"] for v in checks.values())
+        out[name] = {"wall_s": wall, "batched_evals": c["evals"], "kernel_launches": launches,
+                     "ms_per_batched_eval": wall * 1e3 / c["evals"], "against_nuts": checks,
+                     "finite": finite, "ok": p_ok, **extra}
+        ok &= p_ok
+        total_evals += c["evals"]
+        launches_total += launches
+    out.update(batched_evals=total_evals, kernel_launches=launches_total,
+               tolerance=f"{PARTICLE_MCSE} combined MCSE")
+    return ok, out
+
+
+def phase_sgld(nuts_line, dev="cuda"):
+    """SGLD, pSGLD and SGHMC on the JAX tests' Gaussian targets at their
+    gates (tests/test_sgld.py:83-179), independent chains pooled, and
+    shard-subsampled
+    SGLD on the flagship (``logp_and_grad_minibatch`` over 4 of 8 shards
+    plus the prior), its slope against the nuts phase's."""
+    from pytensor_federated_torch.samplers import (
+        polynomial_decay,
+        psgld_sample,
+        sghmc_sample,
+        sgld_sample,
+    )
+    import numpy as np
+
+    from pytensor_federated_torch.utils import value_and_grad
+
+    def gaussian(mu, var):
+        def lg(p, _g):
+            r = (p["x"] - mu) / var
+            return -0.5 * torch.sum(r * (p["x"] - mu)), {"x": -r}
+
+        return lg
+
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    z = torch.zeros(SGLD_CHAINS, 2, device=dev)
+    runs, ok = {}, True
+    t0 = time.perf_counter()
+
+    def pooled(res):
+        return res.samples["x"].double().cpu().numpy().reshape(-1, 2)
+
+    x = pooled(sgld_sample(gaussian(2.0, 0.25), {"x": z}, gen(0), num_samples=1000,
+                           num_burnin=1000, step_size=0.01, thin=2))
+    runs["sgld"] = {"chains": SGLD_CHAINS, "mean": x.mean(0).tolist(), "var": x.var(0).tolist(),
+                    "ok": bool(np.allclose(x.mean(0), 2.0, atol=0.1, rtol=0)
+                               and np.allclose(x.var(0), 0.25, rtol=0.25, atol=0))}
+    x = pooled(sghmc_sample(gaussian(-1.0, 0.5), {"x": z}, gen(5), num_samples=750,
+                            num_burnin=500, step_size=0.05, friction=2.0, thin=3))
+    runs["sghmc"] = {"chains": SGLD_CHAINS, "mean": x.mean(0).tolist(), "var": x.var(0).tolist(),
+                     "ok": bool(np.allclose(x.mean(0), -1.0, atol=0.1, rtol=0)
+                                and np.allclose(x.var(0), 0.5, rtol=0.25, atol=0))}
+    scales = torch.tensor([3.0, 0.1], device=dev).expand(PSGLD_CHAINS, 2)
+    res = psgld_sample(
+        lambda p, _g: (-0.5 * torch.sum((p["x"] / scales) ** 2), {"x": -p["x"] / scales**2}),
+        {"x": scales.clone()}, gen(6), num_samples=1000, num_burnin=2000, step_size=0.02,
+        beta=0.999, thin=3)
+    x = res.samples["x"].double().cpu().numpy()  # (draws, chains, 2)
+    pooled_x = x.reshape(-1, 2)
+    sd = pooled_x.std(0)
+    runs["psgld"] = {"chains": PSGLD_CHAINS, "mean": pooled_x.mean(0).tolist(), "sd": sd.tolist(),
+                     "chain0": {"mean": x[:, 0].mean(0).tolist(), "sd": x[:, 0].std(0).tolist()},
+                     "ok": bool(np.allclose(sd, [3.0, 0.1], rtol=0.45, atol=0)
+                                and all(abs(pooled_x[:, i].mean()) < 0.4 * sd[i]
+                                        for i in range(2)))}
+    gauss_s = time.perf_counter() - t0
+
+    import pytensor_federated_torch as pft
+
+    data, _ = pft.generate_node_data(8, n_obs=FLAGSHIP[1], seed=123, device=dev)
+    model = pft.FederatedLinearRegression(data)
+    k = SGLD_FED["num_shards"]
+
+    def oracle(p, g):
+        lp, grads = model.fed.logp_and_grad_minibatch(p, g, num_shards=k)
+        pv, pg = value_and_grad(model.prior_logp, p)
+        return lp + pv, {n: grads[n] + pg[n] for n in grads}
+
+    from pytensor_federated_torch.samplers import find_map
+
+    t1 = time.perf_counter()
+    start = find_map(model.logp, model.init_params(), num_steps=VI_MAP_STEPS, learning_rate=0.05)
+    res = sgld_sample(oracle, start, gen(4), num_samples=SGLD_FED["num_samples"],
+                      num_burnin=SGLD_FED["num_burnin"],
+                      step_size=polynomial_decay(a=SGLD_FED["a"], gamma=0.55))
+    _sync(dev)
+    slope = res.samples["slope"].double()
+    r = nuts_line.get("recovered", {}).get("slope", {"mean": math.nan, "sd": math.nan})
+    # SGLD without a Metropolis correction is biased by its step size:
+    # the slope's mean within 2 posterior sd of the nuts phase's.
+    fed_ok = abs(float(slope.mean()) - r["mean"]) <= 2 * r["sd"] and bool(
+        torch.isfinite(res.logps).all())
+    runs["federated_sgld"] = {**SGLD_FED, "slope_mean": float(slope.mean()),
+                              "slope_sd": float(slope.std()), "nuts_slope_mean": r["mean"],
+                              "nuts_slope_sd": r["sd"], "seconds": time.perf_counter() - t1,
+                              "ok": fed_ok}
+    ok = all(v["ok"] for v in runs.values())
+    return ok, {"phase": "sgld", "gaussian_s": gauss_s, "runs": runs,
+                "gates": "tests/test_sgld.py:83-179; federated: 2 nuts sd"}
+
+
+def phase_sbc(dev="cuda", sbc=SBC):
+    """Simulation-based calibration of the port's NUTS on tests/
+    test_sbc.py's conjugate normal model, every simulation one chain of
+    one lockstep batch; the uniformity verdict passes, and the negative
+    control of tests/test_sbc.py:54 fails."""
+    import numpy as np
+
+    from pytensor_federated_torch.samplers import SBCResult, sbc_ranks, sbc_uniformity
+
+    n_obs = 16
+
+    def prior_sample(g):
+        return {"mu": torch.randn((), generator=g, device=dev)}
+
+    def simulate(g, params):
+        return params["mu"] + torch.randn((n_obs,), generator=g, device=dev)
+
+    def logp(params, data):
+        mu = params["mu"]
+        return -0.5 * mu**2 - 0.5 * torch.sum((data - mu) ** 2)
+
+    c = {}
+    t0 = time.perf_counter()
+    res = sbc_ranks(prior_sample, simulate, logp, generator=torch.Generator(
+        device=dev).manual_seed(0), counter=c, **sbc)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    stats, dof = sbc_uniformity(res)
+    limit = dof + 4.0 * math.sqrt(2.0 * dof)
+    rng = np.random.default_rng(0)
+    levels = 33
+    bad = np.where(rng.uniform(size=128) < 0.5, rng.integers(0, 4, size=128),
+                   rng.integers(levels - 4, levels, size=128))[:, None]
+    bad_stats, bad_dof = sbc_uniformity(SBCResult(torch.as_tensor(bad), levels, ["mu"]))
+    bad_limit = bad_dof + 4.0 * math.sqrt(2.0 * bad_dof)
+    passes = bool(stats[0] < limit)
+    control_fails = bool(bad_stats[0] > bad_limit)
+    return passes and control_fails, {
+        "phase": "sbc", **sbc, "wall_s": wall, "batched_evals": c["evals"],
+        "ms_per_batched_eval": wall * 1e3 / c["evals"],
+        "n_levels": res.n_levels, "chi2": float(stats[0]), "dof": dof, "limit": limit,
+        "calibrated_passes": passes, "negative_control": {"chi2": float(bad_stats[0]),
+                                                          "limit": bad_limit,
+                                                          "fails": control_fails},
+    }
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def phase_checkpoint(dev="cuda", ck=CHECKPOINT, cut_after=CHECKPOINT_CUT_AFTER):
+    """``sample_checkpointed`` on the flagship through the kernel: an
+    uninterrupted run, a run interrupted after chunk ``cut_after`` (an
+    exception raised in the chunk callback) and resumed; the resumed
+    draws equal the uninterrupted ones bit for bit; a changed config
+    (a 10-transition warmup) restarts from chunk 0."""
+    import tempfile
+
+    from pytensor_federated_torch import sample_checkpointed
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+
+    _, post, init = _flagship_posterior(dev)
+    c = {}
+    lp = _counted(post, c)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    _sync(dev)
+    linreg_reductions.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+        full = sample_checkpointed(lp, init, generator=gen(9),
+                                   checkpoint_path=os.path.join(d, "full.npz"), **ck)
+        path = os.path.join(d, "cut.npz")
+
+        def cut(i):
+            if i + 1 == cut_after:
+                raise _Interrupted
+
+        try:
+            sample_checkpointed(lp, init, generator=gen(9), checkpoint_path=path, on_chunk=cut,
+                                **ck)
+            interrupted = False
+        except _Interrupted:
+            interrupted = True
+        resumed_chunks = []
+        res = sample_checkpointed(lp, init, generator=gen(9), checkpoint_path=path,
+                                  on_chunk=resumed_chunks.append, **ck)
+        restarted = []
+
+        def first(i):
+            restarted.append(i)
+            raise _Interrupted
+
+        try:
+            sample_checkpointed(lp, init, generator=gen(9), checkpoint_path=path,
+                                on_chunk=first, **{**ck, "num_warmup": 10})
+        except _Interrupted:
+            pass
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = linreg_reductions.launches
+    n_chunks = -(-ck["num_samples"] // ck["checkpoint_every"])
+    same = all(torch.equal(res.samples[k], full.samples[k]) for k in full.samples)
+    gates = {
+        "interrupted": interrupted,
+        "resumed_from_chunk": resumed_chunks[:1] == [cut_after]
+        and resumed_chunks == list(range(cut_after, n_chunks)),
+        "bits_equal_uninterrupted": same,
+        "stats_equal": all(torch.equal(res.stats[k], full.stats[k]) for k in full.stats),
+        "changed_config_restarts": restarted == [0],
+        "finite": all(bool(torch.isfinite(v).all()) for v in res.samples.values()),
+        "launches_equal_batched_evals": launches == c["evals"] > 0 if dev == "cuda" else True,
+    }
+    return all(gates.values()), {
+        "phase": "checkpoint", **ck, "cut_after_chunk": cut_after, "wall_s": wall,
+        "batched_evals": c["evals"], "kernel_launches": launches,
+        "ms_per_batched_eval": wall * 1e3 / c["evals"],
+        "draws_sha256": _draws_sha256(res.samples), "gates": gates,
+    }
+
+
+def _free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _port_open(port):
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(1.0)
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
+def phase_demos(dev="cuda", n_ports=DEMO_PORTS, remote_draws=DEMO_REMOTE_DRAWS,
+                local_draws=DEMO_LOCAL_DRAWS):
+    """The reference's demo pair on the card.  ``run_node_pool`` in a
+    child process starts one gRPC node per port (each a grandchild of
+    this script, computing on the card); while they start, ``run_local``
+    on the card recovers the slope through the kernel; ``run_remote``
+    samples against the nodes from the CPU and recovers the slope
+    (tests/test_e2e_remote.py:50's gate); the pool is torn down by
+    SIGTERM to its manager and every node process and port is gone
+    within DEMO_TEARDOWN_S."""
+    import functools
+    import multiprocessing as mp
+
+    from pytensor_federated_torch.demos import demo_model, demo_node
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.service import _grpc
+
+    _grpc.grpc.aio  # the demos need grpcio; a missing one fails the phase
+    ports = _free_ports(n_ports)
+    ctx = mp.get_context("spawn")
+    manager = ctx.Process(target=functools.partial(demo_node.run_node_pool, device=dev),
+                          args=("127.0.0.1", ports), name="demo-pool")
+    t0 = time.perf_counter()
+    manager.start()
+    out, nodes, gone_s, exitcode, left = {"phase": "demos", "ports": ports}, [], None, None, []
+    try:
+        # run_local on the card while the pool's nodes start.
+        _sync(dev)
+        linreg_reductions.launches = 0
+        t3 = time.perf_counter()
+        res = demo_model.run_local(draws=local_draws, device=dev)
+        _sync(dev)
+        slope = res.samples["slope"].double()
+        launches = linreg_reductions.launches
+        out["local"] = {"draws": local_draws, "chains": 2, "seconds": time.perf_counter() - t3,
+                        "median_slope": float(slope.median()), "kernel_launches": launches,
+                        "ok": abs(float(slope.median()) - 2.0) < 0.15
+                        and (launches > 0 or dev != "cuda")}
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not all(_port_open(p) for p in ports):
+            if not manager.is_alive():
+                raise RuntimeError(f"the demo pool exited with {manager.exitcode}")
+            time.sleep(0.2)
+        out["pool_up_s"] = time.perf_counter() - t0
+        nodes = [pid for pid in _live_descendants() if pid != manager.pid]
+        t1 = time.perf_counter()
+        res = demo_model.run_remote("127.0.0.1", ports, draws=remote_draws)
+        slope = res.samples["slope"].double()
+        out["remote"] = {"draws": remote_draws, "seconds": time.perf_counter() - t1,
+                         "median_slope": float(slope.median()),
+                         "ok": abs(float(slope.median()) - 2.0) < 0.15}
+    finally:
+        t2 = time.perf_counter()
+        manager.terminate()  # SIGTERM: the pool's handler terminates its nodes
+        manager.join(timeout=DEMO_TEARDOWN_S)
+        end = time.monotonic() + DEMO_TEARDOWN_S
+        while time.monotonic() < end and (set(nodes) & set(_live_descendants())
+                                          or any(_port_open(p) for p in ports)):
+            time.sleep(0.1)
+        gone_s = time.perf_counter() - t2
+        left = sorted(set(nodes) & set(_live_descendants()))
+        exitcode = manager.exitcode
+        if manager.is_alive() or left:
+            _reap(left + ([manager.pid] if manager.is_alive() else []))
+            manager.join(timeout=5)
+    out["teardown"] = {"node_pids": nodes, "manager_exitcode": exitcode, "seconds": gone_s,
+                       "nodes_left": left, "ports_open": [p for p in ports if _port_open(p)],
+                       "ok": (exitcode == 128 + signal.SIGTERM and not left
+                              and len(nodes) == n_ports and gone_s <= DEMO_TEARDOWN_S
+                              and not any(_port_open(p) for p in ports))}
+    out["kernel_launches"] = launches
+    ok = out["remote"]["ok"] and out["teardown"]["ok"] and out["local"]["ok"]
+    return ok, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
-                                           "slice7", "slice8", "slice9"],
+                                           "slice7", "slice8", "slice9", "slice10"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
                              "wide_logistic, logistic and chees only; slice6: device, build, "
                              "lgssm, gp and tempering only; slice7: device, build, families "
                              "and model_check only; slice8: device, build, nuts, federated "
-                             "and pool only; slice9: device, build and gateway only")
+                             "and pool only; slice9: device, build and gateway only; "
+                             "slice10: device, build, nuts, vi, particles, sgld, sbc, "
+                             "checkpoint and demos only")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
@@ -3280,6 +4216,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    subreaper = _become_subreaper()
 
     # The dense mass matrix's matvecs (nuts_large) are the port's only
     # float32 matmuls: full float32, TF32 held off for matmuls and cuDNN.
@@ -3298,8 +4235,11 @@ def main() -> int:
     from pytensor_federated_torch.ops import _build
 
     t0 = time.perf_counter()
-    build_s = _build.build_all()
+    with _Deadline("build", _deadline_s("build")):
+        build_s = _build.build_all()
+    timing = {"build": {"phase_s": time.perf_counter() - t0, "deadline_s": _deadline_s("build")}}
     emit({"phase": "build", "seconds": build_s, "wall_s": time.perf_counter() - t0,
+          "deadline_s": _deadline_s("build"),
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                     for k, v in _build.build_logs.items()}})
 
@@ -3323,6 +4263,12 @@ def main() -> int:
         ("tempering", phase_tempering),
         ("families", phase_families),
         ("model_check", phase_model_check),
+        ("vi", lambda: phase_vi(lines.get("nuts", {}))),
+        ("particles", lambda: phase_particles(lines.get("nuts", {}))),
+        ("sgld", lambda: phase_sgld(lines.get("nuts", {}))),
+        ("sbc", phase_sbc),
+        ("checkpoint", phase_checkpoint),
+        ("demos", phase_demos),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -3341,19 +4287,43 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("nuts", "federated", "pool")]
     elif args.only == "slice9":
         phases = [ph for ph in phases if ph[0] == "gateway"]
+    elif args.only == "slice10":
+        phases = [ph for ph in phases if ph[0] in ("nuts",) + SLICE10]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
-        try:
-            ok, line = fn()
-        except Exception:
-            traceback.print_exc()
-            ok, line = False, {"phase": pname, "error": traceback.format_exc(limit=3)}
+        deadline = _deadline_s(pname)
+        with _Deadline(pname, deadline):
+            try:
+                ok, line = fn()
+            except Exception:
+                traceback.print_exc()
+                ok, line = False, {"phase": pname, "error": traceback.format_exc(limit=3)}
+            # Nothing a phase started may outlive it: a process left
+            # behind is reaped here and fails the phase; the transports'
+            # cached event loop is closed with its executor threads.
+            line["executor_threads_joined"] = _close_thread_loop()
+            threads = [t.name for t in threading.enumerate()
+                       if not t.daemon and t is not threading.main_thread()]
+            if threads:
+                line["non_daemon_threads"] = threads
+            left = _live_descendants()
+            if left:
+                line["processes_left"] = left
+                line["processes_killed"] = _reap(left)
+                ok = False
         line["phase_s"] = time.perf_counter() - t0
+        line["deadline_s"] = deadline
         line["ok"] = ok
         emit(line)
         lines[pname] = line
+        timing[pname] = {"phase_s": line["phase_s"], "deadline_s": deadline}
         all_ok &= ok
+    left = _leftovers()
+    clean = not any(left.values())
+    emit({"phase": "leftovers", "ok": clean, "subreaper": subreaper, **left})
+    all_ok &= clean
+    emit({"timing": {"phases": timing, "total_s": time.perf_counter() - t_script}})
     if args.only:
         return 0 if all_ok else 1
 
@@ -3368,9 +4338,11 @@ def main() -> int:
         # Counted from zero just before each NUTS phase, read just after
         # (in the federated phase, by the four node processes; in the pool
         # phase, by the eight nodes, over its NUTS run and its windows; in
-        # the gateway phase, by its nodes over the gateway's traffic).
+        # the gateway phase, by its nodes over the gateway's traffic; in
+        # the slice-10 phases, over their fits and runs, the checks
+        # against float64 excluded).
         "launches": sum(lines[p].get("kernel_launches", 0)
-                        for p in ("nuts", "nuts_large", "pool", "gateway"))
+                        for p in ("nuts", "nuts_large", "pool", "gateway") + SLICE10)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),
@@ -3386,6 +4358,13 @@ def main() -> int:
             {k: r.get(k) for k in ("chains", "ms", "device_ms", "plain_ms", "bound_ms",
                                    "bound_by", "max_abs_err", "cuda_launches_per_call")}
             for r in lines["kernels"].get("chains", []) if r["shape"] == list(LARGE_PATH)
+        ],
+        # The largest chain batch of the slice-10 phases, at 8 x 64.
+        "chain_batched_flagship": [
+            {k: r.get(k) for k in ("chains", "ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "max_abs_err", "cuda_launches_per_call")}
+            for r in lines["kernels"].get("chains", [])
+            if r["shape"] == list(FLAGSHIP) and r["chains"] in SLICE10_LARGEST_C
         ],
     }]})
     if not all_ok:

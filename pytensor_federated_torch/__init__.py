@@ -11,7 +11,9 @@ ODE, the federated logistic regressions), ``find_map``, Metropolis and
 the float32 precision policy; the Gaussian processes, the
 linear-Gaussian state-space models with their parallel-in-time Kalman
 filter, parallel tempering (``samplers.pt_sample``) and FLOP accounting
-(:mod:`.flopcount`).  Entry points run on ``cuda`` unless the caller
+(:mod:`.flopcount`).  Variational inference, SMC, the ensemble
+sampler, SGLD and SBC (:mod:`.samplers`), and checkpointed sampling
+that resumes bit for bit (:func:`sample_checkpointed`).  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 
 The federation wire: a node serves its logp+grad over npwire frames on
@@ -23,6 +25,7 @@ package imports neither JAX nor the JAX package, and it imports
 """
 
 from . import flopcount, precision, samplers
+from .checkpoint import load_pytree, sample_checkpointed, save_pytree
 from .convert import params_from_jax, sharded_data_from_jax
 from .models import (
     FederatedExactGP,
@@ -96,6 +99,7 @@ __all__ = [
     "linreg_reductions",
     "linreg_reductions_ref",
     "linreg_suffstats",
+    "load_pytree",
     "logp_grad_from_logp",
     "make_lv_model",
     "pack_shards",
@@ -104,7 +108,9 @@ __all__ = [
     "pdot",
     "precision",
     "resolve_device",
+    "sample_checkpointed",
     "samplers",
+    "save_pytree",
     "sharded_compute",
     "sharded_data_from_jax",
     "spec_of",

@@ -912,6 +912,7 @@ def serve_gateway(
         bound = await server.start()
         if ready_callback is not None:
             ready_callback(bound)
+        # graftlint: disable=unbounded-spin -- sleeping forever IS the idle state of a blocking serve_* entrypoint; the gateway's lanes are deadline-bounded
         while True:
             await asyncio.sleep(3600.0)
 

@@ -213,9 +213,9 @@ async def get_load_async(
             # A garbled load reply is a failed PROBE, not a failed call:
             # None feeds the balancer's "replica unknown" path, which is
             # the loud in-band verdict for this lane.
-            except WireError:
+            except WireError:  # graftlint: disable=wire-loudness -- probe verdict lane
                 return None
-    except (  # a failed probe: None
+    except (  # graftlint: disable=wire-loudness -- probe verdict lane (None = failed probe)
         asyncio.TimeoutError,
         grpc.aio.AioRpcError,
         OSError,
@@ -312,7 +312,7 @@ async def get_node_telemetry_async(
             if reply[:1] != b"{":
                 return None
             load = json.loads(reply.decode("utf-8"))
-    except (  # a failed scrape: None
+    except (  # graftlint: disable=wire-loudness -- probe verdict lane (None = failed scrape)
         asyncio.TimeoutError,
         grpc.aio.AioRpcError,
         OSError,

@@ -821,3 +821,147 @@ def test_grpc_node_on_the_card_is_one_launch_per_batch_frame():
         asyncio.run_coroutine_threadsafe(server.stop(0), loop).result(30)
         loop.call_soon_threadsafe(loop.stop)
         thread.join(30)
+
+
+def _flagship_kernel_posterior(dev, n_obs=64):
+    from pytensor_federated_torch.models.linear import (
+        FederatedLinearRegression,
+        generate_node_data,
+    )
+
+    data, _ = generate_node_data(8, n_obs=n_obs, seed=123, device=dev)
+    model = FederatedLinearRegression(data)
+    (x, y), mask = data.tree()
+    kern = linreg_logp_grad_fn(x, y, mask)
+    return model, kern, (lambda p: model.prior_logp(p) + kern.data_logp(p))
+
+
+@pytest.mark.gpu
+def test_smc_batch_on_the_card_is_one_launch_with_each_chains_bits():
+    """SMC's particle batch through the kernel: one launch per batched
+    evaluation, each particle's data term bit for bit the particle
+    evaluated alone."""
+    from pytensor_federated_torch.samplers import smc_sample
+    from pytensor_federated_torch.samplers.util import ravel
+
+    dev = _cuda()
+    model, kern, post = _flagship_kernel_posterior(dev)
+    flat0, unravel = ravel(model.init_params())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = flat0 + 0.1 * torch.randn((64, flat0.shape[0]), generator=gen, device=dev)
+    with torch.no_grad():
+        linreg_reductions.launches = 0
+        batched = torch.func.vmap(lambda v: kern.data_logp(unravel(v)))(x)
+        assert linreg_reductions.launches == 1
+        alone = torch.stack([kern.data_logp(unravel(v)) for v in x])
+    assert torch.equal(batched, alone)
+    evals = {"n": 0}
+
+    def counted(p):
+        evals["n"] += 1
+        return post(p)
+
+    linreg_reductions.launches = 0
+    res = smc_sample(counted, model.init_params(), generator=gen, n_particles=256,
+                     n_mutations=2, max_stages=3)
+    torch.cuda.synchronize()
+    assert linreg_reductions.launches == evals["n"] == 1 + 2 * int(res.n_stages)
+    assert bool(torch.isfinite(res.samples["slope"]).all())
+
+
+@pytest.mark.gpu
+def test_sample_checkpointed_resumes_bit_identically_on_the_card(tmp_path):
+    from pytensor_federated_torch import sample_checkpointed
+
+    dev = _cuda()
+    model, _, post = _flagship_kernel_posterior(dev)
+    kw = dict(num_warmup=20, num_samples=20, num_chains=1, checkpoint_every=5, max_depth=3)
+    full = sample_checkpointed(post, model.init_params(),
+                               generator=torch.Generator(device=dev).manual_seed(4),
+                               checkpoint_path=str(tmp_path / "full.npz"), **kw)
+
+    class Stop(Exception):
+        pass
+
+    def stop(i):
+        if i == 1:
+            raise Stop
+
+    path = str(tmp_path / "cut.npz")
+    with pytest.raises(Stop):
+        sample_checkpointed(post, model.init_params(),
+                            generator=torch.Generator(device=dev).manual_seed(4),
+                            checkpoint_path=path, on_chunk=stop, **kw)
+    ran = []
+    res = sample_checkpointed(post, model.init_params(),
+                              generator=torch.Generator(device=dev).manual_seed(4),
+                              checkpoint_path=path, on_chunk=ran.append, **kw)
+    assert ran == [2, 3]
+    assert res.samples["slope"].device.type == "cuda"
+    for k in full.samples:
+        assert torch.equal(res.samples[k], full.samples[k])
+
+
+@pytest.mark.gpu
+def test_demo_grpc_node_on_the_card_answers_and_is_gone_after_sigterm():
+    """A demo node pool of one gRPC node on the card answers with the
+    CPU node's values (rtol 1e-5) and its process is gone within 10 s of
+    the SIGTERM to its manager."""
+    import asyncio
+    import functools
+    import multiprocessing as mp
+    import os
+    import socket
+    import time
+
+    from pytensor_federated_torch.demos import demo_node
+    from pytensor_federated_torch.service import LogpGradServiceClient
+
+    _cuda()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    manager = mp.get_context("spawn").Process(
+        target=functools.partial(demo_node.run_node_pool, device="cuda"),
+        args=("127.0.0.1", [port]))
+    manager.start()
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            with socket.socket() as s:
+                if s.connect_ex(("127.0.0.1", port)) == 0:
+                    break
+            time.sleep(0.2)
+
+        async def call():
+            client = LogpGradServiceClient("127.0.0.1", port)
+            return await asyncio.wait_for(
+                client.evaluate_async(np.float32(1.5), np.float32(2.0)), 60)
+
+        logp, grads = asyncio.run(call())
+        want = demo_node.make_node_compute(port, device="cpu")(np.float32(1.5), np.float32(2.0))
+        np.testing.assert_allclose(np.array([logp, *grads], np.float64),
+                                   np.array(want, np.float64), rtol=1e-5, atol=1e-4)
+        nodes = []
+        for entry in os.listdir("/proc"):
+            if entry.isdigit():
+                try:
+                    with open(f"/proc/{entry}/stat") as f:
+                        fields = f.read().rsplit(")", 1)[1].split()
+                except OSError:
+                    continue
+                if int(fields[1]) == manager.pid:
+                    nodes.append(int(entry))
+        assert len(nodes) == 1
+    finally:
+        manager.terminate()
+        manager.join(timeout=10)
+    assert manager.exitcode == 128 + 15
+    end = time.monotonic() + 10
+    while time.monotonic() < end and os.path.exists(f"/proc/{nodes[0]}"):
+        with open(f"/proc/{nodes[0]}/stat") as f:
+            if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                break
+        time.sleep(0.1)
+    assert not os.path.exists(f"/proc/{nodes[0]}") or open(
+        f"/proc/{nodes[0]}/stat").read().rsplit(")", 1)[1].split()[0] == "Z"

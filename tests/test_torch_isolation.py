@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "pytensor_federated_tpu", "grpc")
 SUBPACKAGES = (
     "service", "telemetry", "faultinject", "routing", "ops", "signatures",
     "wrappers", "fanout_exec", "models", "parallel", "samplers", "precision",
-    "flopcount", "_assoc_scan", "gateway",
+    "flopcount", "_assoc_scan", "gateway", "ppl", "checkpoint", "demos", "demos.demo_node",
+    "demos.demo_model",
 )
 
 
@@ -203,13 +204,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: pft.generate_gp_data(2, n_obs=4),
         lambda: pft.FederatedLGSSMPanel(torch.zeros(2, 4).numpy()),
         lambda: pft.flopcount.peak_flops(),
+        lambda: __import__("pytensor_federated_torch.demos.demo_node",
+                           fromlist=["x"]).make_node_compute(50000),
+        lambda: __import__("pytensor_federated_torch.demos.demo_model",
+                           fromlist=["x"]).run_local(draws=1),
     ],
     ids=["generate_lgssm_data", "default_lgssm_params", "generate_gp_data", "FederatedLGSSMPanel",
-         "peak_flops"],
+         "peak_flops", "demo_node.make_node_compute", "demo_model.run_local"],
 )
 def test_new_entry_points_default_to_cuda(monkeypatch, call):
-    """The state-space, GP and FLOP entry points ask for CUDA without
-    ``device=`` and raise when there is none."""
+    """The state-space, GP, FLOP and demo entry points ask for CUDA
+    without ``device=`` and raise when there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
