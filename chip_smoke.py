@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only slice9    # device, build, gateway
     python3 chip_smoke.py --only slice10   # device, build, nuts, vi, particles,
                                            # sgld, sbc, checkpoint, demos
+    python3 chip_smoke.py --only slice11   # device, build, nuts_large, optim, mesh
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -124,7 +125,10 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    A serves windows; C scales up, serves windows and is drained.  Also
    printed: requests/s, requests and ms per window, p50/p99 latency per
    tenant, failed upstream attempts, in-band errors, the card's name and
-   power limit.
+   power limit, and the drive's stalls (write lateness per tenant, both
+   event loops' lag, the garbage collector's pauses; the script's heap
+   is frozen out of the collector for the phase, and each mouse
+   denial's reason is kept).
 10. ``radon`` — BASELINE.json config 3 (the hierarchical radon GLM, 16
    county shards) on the card: value and gradient at three points against
    the same model in float64 on the CPU; ms per logp+grad evaluation
@@ -250,8 +254,40 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    the card recovers the slope through the kernel; ``run_remote(draws=
    200)`` recovers the slope over the nodes; SIGTERM to the pool's
    manager takes every node process and port away within 10 s.
+26. ``optim`` — the sharded optimizer over the pool.  Four owner node
+   processes (``spawn``; two over shm, two over TCP) each hold the
+   flagship's 8 shards at 8 x 131,072 on the card and answer every
+   versioned update request with the full gradient of the negative
+   posterior through the kernel (one launch), Adam on their shard of the
+   11 parameters and a checkpoint in a shared ``ShardStore`` before the
+   reply.  A ``ShardedOptimizer`` with 4 shards over a ``NodePool`` takes
+   200 Adam steps at lr 0.05; the owner of shard 0 is SIGKILLed after
+   step 100 and its shard rebinds to a live replica, which restores it
+   from the store.  Then a fresh run of 50 steps puts the 4 shards on 2
+   replicas (two per replica, serialized on its client), over a second
+   store.  Gates: the final parameters of each run equal, bit for bit,
+   Adam on the whole gradient through the kernel on the card (the
+   driver-centric control); per shard the driver's version, the store's
+   version and Adam's step count equal the accepted steps; at most 3
+   elements per reply; on every node kernel launches equal update
+   requests; a gRPC replica is refused at bind.
+27. ``mesh`` — the flagship at 8 x 131,072 over a 4-slot mesh of the
+   one card (``make_mesh({"shards": 4}, devices=[cuda:0] * 4)``), on the
+   plain per-shard path as the JAX package's mesh model runs it: value
+   and gradient at three points against float64 on the CPU and against
+   ``mesh=None`` (value rtol 1e-5, gradient 1e-4 |g| + 1e-5 max|g|), a
+   rerun's bits, ``per_shard_logps``, ``sharded_compute(mesh=)`` and the
+   minibatch estimator with fixed per-slot indices; the JAX package's
+   error strings for a mesh that does not divide; ``find_map`` (30 steps)
+   against float64 on the CPU; NUTS 1 x (100 + 100) with a dense mass,
+   its evaluations replayed from a CUDA graph and counted by
+   ``instrument_logp``, its means within 4 combined MCSEs of
+   ``nuts_large``'s; ``get_load`` and ``healthy_devices``.  The four slots
+   run one after another on the card's stream: the phase shows the
+   partition, the per-slot work and the cross-slot sum, not concurrency
+   across cards.
 
-Phases 10-19 launch no kernel of the port: the JAX package computes
+Phases 10-19 and 27 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Every phase runs under a deadline of three times its expected seconds
@@ -274,7 +310,9 @@ only, with ``--only slice6`` the lgssm, gp and tempering phases only,
 with ``--only slice7`` the families and model_check phases only, with
 ``--only slice8`` the nuts, federated and pool phases only, with
 ``--only slice9`` the gateway phase only, with ``--only slice10`` the nuts
-phase (the reference posterior) and phases 20-25;
+phase (the reference posterior) and phases 20-25, with ``--only slice11``
+the nuts_large phase (the mesh phase's reference posterior) and phases
+26-27;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -415,6 +453,7 @@ PHASE_EXPECTED_S = {
     "lv_ode": 25, "wide_logistic": 5, "chees": 10, "lgssm": 50, "gp": 5,
     "tempering": 80, "families": 10, "model_check": 80,
     "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 15, "demos": 40,
+    "optim": 30, "mesh": 50,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -1989,13 +2028,54 @@ def _gateway_node(name, n_obs, port, dev, shared, conn):
         conn.send({"error": traceback.format_exc()})
 
 
-async def _drive_gateway(port, conns, on_sent=None):
+async def _loop_lag(stop, out, tick_s=0.005):
+    """Until ``stop`` (a ``threading.Event``) is set: the running loop's
+    lag past each ``tick_s`` sleep, its worst (``max_s``, at ``at``, a
+    ``perf_counter`` time) and the ticks later than 0.1 s, in ``out``."""
+    import asyncio
+
+    out.setdefault("max_s", 0.0)
+    out.setdefault("over_100ms", 0)
+    while not stop.is_set():
+        t = time.perf_counter()
+        await asyncio.sleep(tick_s)
+        lag = time.perf_counter() - t - tick_s
+        if lag > out["max_s"]:
+            out["max_s"], out["at"] = lag, t
+        out["over_100ms"] += lag > 0.1
+
+
+def _gc_pause_recorder(out):
+    """A ``gc.callbacks`` entry that keeps, per generation, the number of
+    collections, their worst pause and its ``perf_counter`` time in
+    ``out``."""
+    started = []
+
+    def callback(phase, info):
+        if phase == "start":
+            started[:] = [time.perf_counter()]
+            return
+        if not started:
+            return
+        dt = time.perf_counter() - started[0]
+        rec = out.setdefault(f"gen{info['generation']}", {"n": 0, "max_ms": 0.0})
+        rec["n"] += 1
+        if dt * 1e3 > rec["max_ms"]:
+            rec["max_ms"], rec["at"] = dt * 1e3, started[0]
+
+    return callback
+
+
+async def _drive_gateway(port, conns, on_sent=None, late=None, lag=None):
     """One round of downstream traffic: ``conns`` holds, per connection,
     its items (``id``, ``at`` seconds after the start, the ``frame``),
     each connection writing its frames at their times and reading the
     replies in order (the npwire FIFO contract).  Returns ``{id:
     (reply bytes or None, seconds from write to reply)}``; a reply that
-    does not come within the read timeout is ``None`` (a hang)."""
+    does not come within the read timeout is ``None`` (a hang).  With a
+    ``late`` dict, each id's write lateness in seconds (written minus
+    planned time) is kept in it; with a ``lag`` dict, this loop's lag
+    (``_loop_lag``) over the round."""
     import asyncio
     import struct
 
@@ -2012,7 +2092,10 @@ async def _drive_gateway(port, conns, on_sent=None):
                 if delay > 0:
                     await asyncio.sleep(delay)
                 writer.write(struct.pack("<I", len(it["frame"])) + it["frame"])
-                sent.put_nowait((it["id"], time.perf_counter()))
+                now = time.perf_counter()
+                if late is not None:
+                    late[it["id"]] = now - t0 - it["at"]
+                sent.put_nowait((it["id"], now))
                 if on_sent is not None:
                     on_sent()
                 await writer.drain()
@@ -2035,7 +2118,14 @@ async def _drive_gateway(port, conns, on_sent=None):
         finally:
             writer.close()
 
-    await asyncio.gather(*(one(items) for items in conns if items))
+    stop = threading.Event()
+    monitor = asyncio.ensure_future(_loop_lag(stop, lag)) if lag is not None else None
+    try:
+        await asyncio.gather(*(one(items) for items in conns if items))
+    finally:
+        if monitor is not None:
+            stop.set()
+            await monitor
     return results, time.perf_counter() - t0
 
 
@@ -2043,6 +2133,7 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
                   offer_s=GATEWAY_OFFER_S, seed=7):
     import asyncio
     import collections
+    import gc
     import importlib.util
     import multiprocessing as mp
     import struct
@@ -2184,7 +2275,7 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
             expect(nodes[name], "reset")
 
         uid_of = lambda rnd, rid: struct.pack("<QQ", rnd, rid)
-        tenant_of, distinct_of = {}, {}
+        tenant_of, distinct_of, at_of = {}, {}, {}
 
         def plan(rnd, items_by_tenant, conn_ids, pace_s, deadline_s=None):
             """Connections' item lists: each tenant's items evenly over
@@ -2197,8 +2288,9 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
                     frame = encode_arrays(list(p), uuid=uid_of(rnd, rid), tenant=tenant,
                                           deadline_s=deadline_s.get(rid) if deadline_s else None)
                     tenant_of[(rnd, rid)], distinct_of[(rnd, rid)] = tenant, d
+                    at_of[(rnd, rid)] = i * pace_s / max(len(items), 1)
                     conns[ids[i % len(ids)]].append(
-                        {"id": (rnd, rid), "at": i * pace_s / max(len(items), 1), "frame": frame})
+                        {"id": (rnd, rid), "at": at_of[(rnd, rid)], "frame": frame})
             for items in conns.values():
                 items.sort(key=lambda it: it["at"])
             return list(conns.values())
@@ -2243,8 +2335,33 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
                 kill["thread"].start()
 
         main_conns = plan(0, by_tenant, conn_ids, offer_s, expired)
+        # The script's heap (earlier phases' objects, the planned frames)
+        # is frozen out of the cyclic collector until the phase ends: a full
+        # collection over it stalls the gateway's thread and the traffic's
+        # loop alike, and the frames it holds back reach the gateway as one
+        # bunch, past a mouse's burst.  A gateway process of its own holds
+        # no such heap.
+        t_collect = time.perf_counter()
+        gc.collect()
+        full_collect_ms = 1e3 * (time.perf_counter() - t_collect)
+        gc.freeze()
         mark("planned")
-        results, main_wall = asyncio.run(_drive_gateway(gw_port, main_conns, on_sent))
+        # What could bunch a tenant's evenly paced frames past its burst:
+        # each write's lateness, the client's and the gateway's event-loop
+        # lag, and this process's garbage-collector pauses, over the drive.
+        late, client_lag, gw_lag, gc_pauses = {}, {}, {}, {}
+        gw_stop = threading.Event()
+        gw_monitor = asyncio.run_coroutine_threadsafe(_loop_lag(gw_stop, gw_lag), gw._loop)
+        gc_callback = _gc_pause_recorder(gc_pauses)
+        gc.callbacks.append(gc_callback)
+        t_traffic = time.perf_counter()
+        try:
+            results, main_wall = asyncio.run(_drive_gateway(gw_port, main_conns, on_sent,
+                                                            late=late, lag=client_lag))
+        finally:
+            gc.callbacks.remove(gc_callback)
+            gw_stop.set()
+            gw_monitor.result(timeout=10)
         mark("traffic")
 
         def classify(rid_key, reply):
@@ -2403,6 +2520,29 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
         scale_ok = scaled and c_counts["windows"] >= 1 and c_drained
         upstream_failed = sum(failed_windows.values())
         q = lambda v, p: float(np.quantile(v, p)) * 1e3 if v else None
+        # Seconds are from the phase's start, as marks_s and failover are.
+        since = lambda t: None if t is None else t - t_phase
+        stalls = {
+            "write_late_ms": {t: {"max": 1e3 * max((v for k, v in late.items() if tenant_of[k] == t),
+                                                   default=0.0),
+                                  "over_100ms": sum(v > 0.1 for k, v in late.items()
+                                                    if tenant_of[k] == t)}
+                              for t in GATEWAY_TENANTS},
+            "client_loop_lag": {"max_ms": 1e3 * client_lag["max_s"],
+                                "at_s": since(client_lag.get("at")),
+                                "over_100ms": client_lag["over_100ms"]},
+            "gateway_loop_lag": {"max_ms": 1e3 * gw_lag["max_s"], "at_s": since(gw_lag.get("at")),
+                                 "over_100ms": gw_lag["over_100ms"]},
+            "gc": {g: {**r, "at": since(r.get("at"))} for g, r in gc_pauses.items()},
+            # The frozen heap, and one full collection over it (what a
+            # collection during the drive would have stalled).
+            "gc_frozen_objects": gc.get_freeze_count(),
+            "gc_full_collection_ms": full_collect_ms,
+            "mouse_denials": [{"tenant": tenant_of[k], "planned_s": since(t_traffic) + at_of[k],
+                               "late_ms": 1e3 * late[k] if k in late else None, "error": e}
+                              for k, (o, e) in main.items()
+                              if o == "denied" and tenant_of[k] != "hog"][:16],
+        }
         smi = _nvidia_smi() if dev == "cuda" else "cpu"
         gates = {"on_card": on_card, "replicas_agree": replicas_agree, "correct": correct_ok,
                  "one_launch_per_window": launch_ok,
@@ -2442,6 +2582,7 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
                          "upstream_failed": upstream_failed,
                          "in_band_upstream_errors": kinds["upstream"], "hangs": kinds["hang"],
                          "restarted_windows": node_counts.get("A1", {}).get("windows", 0)},
+            "stalls": stalls,
             "retries": [dict(r) for r in retry_rounds],
             "deadline": {"shed_total_delta": shed_delta, "replies": dict(expired_kinds)},
             "autoscale": {"scaled_up": scaled, "seconds": scale_up_s, "bursts": bursts,
@@ -2459,6 +2600,7 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
         if pool is not None:
             pool.close()
         spans.set_enabled(spans_were)
+        gc.unfreeze()
         for recs in lives.values():
             for rec in recs:
                 if rec["proc"].is_alive():
@@ -4192,10 +4334,502 @@ def phase_demos(dev="cuda", n_ports=DEMO_PORTS, remote_draws=DEMO_REMOTE_DRAWS,
     return ok, out
 
 
+# The optim phase: the sharded optimizer over a pool of owner nodes on the
+# card.  Four node processes (two over shm, two over TCP, as the pool
+# phase builds its lanes) each hold the flagship's 8 shards at 8 x 131,072
+# and compute the full gradient of the negative posterior through the
+# kernel for every update request (one launch each); a ShardedOptimizer
+# splits the 11 parameters into 4 shards over a NodePool.  Adam at lr
+# 0.05 for OPTIM_STEPS steps, one owner SIGKILLed after OPTIM_KILL_AFTER
+# of them (its shard rebinds to a live replica, which restores it from
+# the shared ShardStore); then OPTIM_SHARED_STEPS steps of a fresh run
+# with 4 shards over 2 replicas (two shards per replica, serialized on
+# its client), over a second store.  Evaluations: 4 per step and the
+# driver-centric control's one per step.
+OPTIM_LANES = ("shm", "shm", "tcp", "tcp")
+OPTIM_SHARDS, OPTIM_LR = 4, 0.05
+OPTIM_STEPS, OPTIM_KILL_AFTER, OPTIM_SHARED_STEPS = 200, 100, 50
+
+
+def _optim_grad_fn(dev, n_obs):
+    """``(grad_fn, flat0)``: the flagship's negative posterior at 8 x
+    ``n_obs`` and its full flat gradient through the kernel wrapper (one
+    launch per call), from a flat float32 parameter vector, returned as
+    numpy; and the model's initial flat parameters.  The owners'
+    ``grad_fn`` and the driver-centric control's."""
+    import numpy as np
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.samplers.util import ravel
+
+    data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device=dev)
+    model = pft.FederatedLinearRegression(data)
+    (x, y), mask = data.tree()
+    kern = pft.linreg_logp_grad_fn(x, y, mask)
+    flat0, unravel = ravel(model.init_params())
+
+    def grad_fn(params, *_):
+        flat = torch.as_tensor(np.array(params, np.float32), device=dev).requires_grad_(True)
+        p = unravel(flat)
+        loss = -(model.prior_logp(p) + kern.data_logp(p))
+        (g,) = torch.autograd.grad(loss, flat)
+        return loss.detach().cpu().numpy(), g.cpu().numpy()
+
+    return grad_fn, flat0.cpu().numpy()
+
+
+def _optim_node(lane, n_obs, roots, dev, conn):
+    """One owner replica process: ``make_update_compute`` over the
+    flagship's gradient on ``dev``, one per store root in ``roots``, each
+    served on a port of its own over ``lane``.  It answers the driver's
+    commands on ``conn`` with its update and refresh requests and kernel
+    launches since the last ``reset``."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import threading
+
+        import numpy as np
+
+        from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+        from pytensor_federated_torch.optim import ShardStore, make_update_compute
+        from pytensor_federated_torch.optim._adam import adam
+        from pytensor_federated_torch.service import serve_shm, serve_tcp_once
+
+        if dev == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"optim node {lane} found no GPU")
+        grad_fn, _ = _optim_grad_fn(dev, n_obs)
+        counts, lock, ports = {"updates": 0, "refreshes": 0}, threading.Lock(), []
+        for root in roots:
+            compute = make_update_compute(grad_fn, adam(OPTIM_LR), ShardStore(root),
+                                          params_of=lambda arrays: np.asarray(arrays[0]).ravel())
+
+            def versioned_update(arrays, part, version, inner=compute.versioned_update):
+                with lock:
+                    counts["updates" if len(arrays) else "refreshes"] += 1
+                return inner(arrays, part, version)
+
+            compute.versioned_update = versioned_update
+            bound = threading.Event()
+
+            def on_ready(port, bound=bound):
+                ports.append(port)
+                bound.set()
+
+            threading.Thread(target=serve_shm if lane == "shm" else serve_tcp_once,
+                             args=(compute,), daemon=True,
+                             kwargs={"port": 0, "ready_callback": on_ready,
+                                     "concurrent": True}).start()
+            if not bound.wait(60):
+                raise RuntimeError(f"optim node {lane} did not bind a port")
+        conn.send({"lane": lane, "ports": ports, "pid": os.getpid(),
+                   "device": torch.cuda.get_device_name() if dev == "cuda" else "cpu"})
+
+        def now():
+            with lock:
+                return {**counts, "launches": linreg_reductions.launches}
+
+        base = now()
+        while True:
+            cmd = conn.recv()
+            cur = now()
+            if cmd == "reset":  # counts to 0 just before a drive
+                base = cur
+            conn.send({k: cur[k] - base[k] for k in cur})
+            if cmd == "stop":
+                return
+    except Exception:
+        conn.send({"error": traceback.format_exc()})
+
+
+def _optim_run(pool, params, steps, on_step=None):
+    """``steps`` sharded Adam steps from ``params`` over ``pool``:
+    ``(optimizer, params, accepted per shard, statuses, owners per
+    step)``; ``on_step(step, optimizer)`` runs before each step."""
+    from pytensor_federated_torch.optim import ShardedOptimizer
+
+    opt = ShardedOptimizer(params.size, pool=pool, count=OPTIM_SHARDS)
+    accepted, statuses, owners = [0] * OPTIM_SHARDS, {}, []
+    for step in range(1, steps + 1):
+        if on_step is not None:
+            on_step(step, opt)
+        results = opt.step([params])
+        for r in results:
+            statuses[r.status] = statuses.get(r.status, 0) + 1
+            accepted[r.index] += r.accepted
+        params, _ = opt.apply(params, results)
+        owners.append([o.address for o in opt._owners])
+    return opt, params, accepted, statuses, owners
+
+
+def _opt_steps_gate(opt, store, accepted):
+    """Per shard: the driver's version, the store's version and the Adam
+    count in its checkpoint all equal the accepted steps."""
+    out = []
+    for k, part in enumerate(opt.parts):
+        state = store.load(part)
+        out.append({"shard": k, "accepted": accepted[k], "driver_version": opt.versions[k],
+                    "store_version": state.version, "opt_steps": int(state.opt_leaves[0])})
+    return all(r["accepted"] == r["driver_version"] == r["store_version"] == r["opt_steps"]
+               for r in out), out
+
+
+def phase_optim(dev="cuda", n_obs=LARGE_PATH[1], steps=OPTIM_STEPS, kill_after=OPTIM_KILL_AFTER,
+                shared_steps=OPTIM_SHARED_STEPS):
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pytensor_federated_torch.optim import ShardStore, ShardedOptimizer
+    from pytensor_federated_torch.optim._adam import adam
+    from pytensor_federated_torch.optim.sharded import SHARD_UPDATES
+    from pytensor_federated_torch.routing import NodePool
+
+    planned = {"owner_evals": OPTIM_SHARDS * (steps + shared_steps), "control_evals": steps}
+    roots = [tempfile.mkdtemp(prefix="chip-smoke-optim-") for _ in range(2)]
+    ctx = mp.get_context("spawn")
+    procs, conns, pools, out = [], [], [], {"phase": "optim", "size": [8, n_obs],
+                                            "planned": planned}
+    try:
+        t0 = time.perf_counter()
+        for lane in OPTIM_LANES:
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_optim_node, args=(lane, n_obs, roots, dev, child),
+                               daemon=True)
+            proc.start()
+            procs.append(proc)
+            conns.append(parent)
+        # The driver-centric control while the nodes start: the same
+        # gradient on this process's card, Adam on the whole vector.
+        grad_fn, flat0 = _optim_grad_fn(dev, n_obs)
+        opt = adam(OPTIM_LR)
+        state = opt.init(torch.from_numpy(flat0))
+        params, control, losses = flat0.copy(), {}, []
+        tc = time.perf_counter()
+        for step in range(1, steps + 1):
+            loss, g = grad_fn(params)
+            upd, state = opt.update(torch.from_numpy(g), state)
+            params = params + upd.numpy()
+            losses.append(float(loss))
+            if step in (shared_steps, steps):
+                control[step] = params
+        out["control_s"] = time.perf_counter() - tc
+        nodes = _fed_ask(conns, None, timeout=300.0)
+        out["spawn_s"] = time.perf_counter() - t0
+        out["nodes"] = [{"lane": n["lane"], "device": n["device"]} for n in nodes]
+
+        # Run 1: 4 shards over 4 replicas, an owner SIGKILLed after
+        # kill_after steps.
+        pool = NodePool(transport="tcp", probe_interval_s=60.0,
+                        breaker_kwargs={"failure_threshold": 1})
+        pools.append(pool)
+        for n in nodes:
+            pool.add_replica("127.0.0.1", n["ports"][0], transport=n["lane"])
+        addresses = [f"127.0.0.1:{n['ports'][0]}" for n in nodes]
+        killed = {}
+
+        def kill_owner(step, opt):
+            if step != kill_after + 1:
+                return
+            victim = addresses.index(opt._owners[0].address)
+            killed.update(index=victim, lane=nodes[victim]["lane"],
+                          counts=_fed_ask([conns[victim]], "counts")[0])
+            procs[victim].kill()
+            procs[victim].join(timeout=10)
+            killed["exitcode"] = procs[victim].exitcode
+
+        _fed_ask(conns, "reset")
+        applied0 = SHARD_UPDATES.labels(outcome="applied").value
+        t1 = time.perf_counter()
+        opt1, params1, accepted1, statuses1, owners1 = _optim_run(
+            pool, flat0.copy(), steps, kill_owner)
+        run1_s = time.perf_counter() - t1
+        live = [k for k in range(len(procs)) if k != killed.get("index")]
+        counts1 = dict(zip(live, _fed_ask([conns[k] for k in live], "counts")))
+        counts1[killed["index"]] = killed["counts"]
+        opt_ok1, opt_steps1 = _opt_steps_gate(opt1, ShardStore(roots[0]), accepted1)
+        victim_addr = addresses[killed["index"]]
+        after = owners1[kill_after:]
+        run1 = {
+            "steps": steps, "seconds": run1_s, "ms_per_step": run1_s * 1e3 / steps,
+            "statuses": statuses1, "killed": {k: v for k, v in killed.items() if k != "counts"},
+            "shards_on_victim_before_kill": sum(a == victim_addr for a in owners1[kill_after - 1]),
+            "owners_after_kill": after[-1], "node_counts": [counts1[k] for k in range(len(procs))],
+            "opt_steps": opt_steps1, "max_reply_elems": opt1.max_reply_elems,
+            "applied_metric_delta": SHARD_UPDATES.labels(outcome="applied").value - applied0,
+        }
+        launches1 = sum(c["launches"] for c in counts1.values())
+        run1["gates"] = {
+            "bits_equal_driver_centric": bool(np.array_equal(params1, control[steps])),
+            "opt_steps_equal_accepted": opt_ok1 and accepted1 == [steps] * OPTIM_SHARDS,
+            "max_reply_elems_le_3": opt1.max_reply_elems <= 3,
+            "launches_equal_update_requests": (
+                all(c["launches"] == c["updates"] for c in counts1.values())
+                and launches1 == statuses1.get("applied", 0) + statuses1.get("recovered", 0)
+                if dev == "cuda" else True),
+            "killed_by_sigkill": killed.get("exitcode") == -signal.SIGKILL,
+            "rebound_off_the_victim": all(a != victim_addr for step in after for a in step),
+            "loss_decreased": losses[-1] < losses[0],
+        }
+
+        # Run 2: a fresh optimizer, 4 shards over 2 replicas, second store.
+        pool2 = NodePool(transport="tcp", probe_interval_s=60.0)
+        pools.append(pool2)
+        pair = live[:2]
+        for k in pair:
+            pool2.add_replica("127.0.0.1", nodes[k]["ports"][1], transport=nodes[k]["lane"])
+        _fed_ask([conns[k] for k in live], "reset")
+        t2 = time.perf_counter()
+        opt2, params2, accepted2, statuses2, owners2 = _optim_run(pool2, flat0.copy(), shared_steps)
+        run2_s = time.perf_counter() - t2
+        counts2 = _fed_ask([conns[k] for k in live], "counts")
+        opt_ok2, opt_steps2 = _opt_steps_gate(opt2, ShardStore(roots[1]), accepted2)
+        launches2 = sum(c["launches"] for c in counts2)
+        run2 = {
+            "steps": shared_steps, "replicas": 2, "seconds": run2_s,
+            "ms_per_step": run2_s * 1e3 / shared_steps, "statuses": statuses2,
+            "owners": owners2[-1], "shards_per_replica": sorted(
+                owners2[-1].count(a) for a in set(owners2[-1])), "node_counts": counts2, "opt_steps": opt_steps2,
+            "max_reply_elems": opt2.max_reply_elems,
+        }
+        run2["gates"] = {
+            "bits_equal_driver_centric": bool(np.array_equal(params2, control[shared_steps])),
+            "opt_steps_equal_accepted": opt_ok2 and accepted2 == [shared_steps] * OPTIM_SHARDS,
+            "max_reply_elems_le_3": opt2.max_reply_elems <= 3,
+            "launches_equal_update_requests": (
+                all(c["launches"] == c["updates"] for c in counts2)
+                and launches2 == statuses2.get("applied", 0) if dev == "cuda" else True),
+        }
+
+        # A gRPC replica has no versioned lane: refused at bind.
+        pool3 = NodePool(transport="grpc", probe_interval_s=60.0)
+        pools.append(pool3)
+        pool3.add_replica("127.0.0.1", nodes[live[0]]["ports"][0])
+        try:
+            ShardedOptimizer(flat0.size, pool=pool3, count=1).step([flat0])
+            grpc = {"refused": False}
+        except TypeError as e:
+            grpc = {"refused": "no versioned-update lane" in str(e), "error": str(e)}
+
+        _fed_ask([conns[k] for k in live], "stop")
+        for k in live:
+            procs[k].join(timeout=10)
+        out.update({
+            "shards": OPTIM_SHARDS, "lr": OPTIM_LR, "lanes": list(OPTIM_LANES),
+            "run1": run1, "run2": run2, "grpc_refused_at_bind": grpc,
+            "kernel_launches": launches1 + launches2,
+            "final_params": params1.tolist(), "final_loss": losses[-1],
+        })
+        ok = (all(run1["gates"].values()) and all(run2["gates"].values()) and grpc["refused"])
+        return ok, out
+    finally:
+        for pool in pools:
+            pool.close()
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=10)
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+# The mesh phase: the flagship at 8 x 131,072 over a 4-slot mesh of one
+# card ([cuda:0] * 4: the slots run one after another on its stream, so
+# the phase shows the partition, the per-slot work and the cross-slot
+# sum, not concurrency across cards), on the plain per-shard path as the
+# JAX package's mesh model runs it.  MESH_FIND_MAP steps of find_map and
+# NUTS 1 x (100 + 100) with a dense mass, its evaluations replayed from
+# a CUDA graph.  NUTS took 13,574 evaluations in a run on the CPU (68 per
+# transition: the intercept ridge), ~25-50 s at the eager leaf's 2-4 ms
+# of host time.  Trees capped at depth 4 took a fifth of that but did
+# not reach the posterior in 100 warmup transitions (sigma 0.652 against
+# 0.500 for one seed), so the trees are not capped.
+MESH_SLOTS = 4
+MESH_NUTS = (1, 100, 100)  # chains, warmup, draws
+MESH_FIND_MAP = dict(num_steps=30, learning_rate=0.05)
+# Each slot's local shard (of its two) in the minibatch estimate.
+MESH_MINIBATCH_LOCAL = [[0], [1], [1], [0]]
+MESH_TIMED_EVALS = 20
+# find_map on the card's mesh against find_map in float64 on the CPU
+# without one, per parameter.
+MESH_FIND_MAP_ATOL = 1e-4
+# The JAX package's refusals (pytensor_federated_tpu/parallel/sharded.py
+# :131-135, :251-254, :360-362), for 8 shards over 3 slots and a
+# minibatch of 2 over 4.
+MESH_ERRORS = {
+    "federated_logp": "n_shards=8 not divisible by mesh axis 'shards' of size 3",
+    "minibatch": "num_shards=2 not divisible by mesh axis 'shards' of size 4",
+    "sharded_compute": "n_shards=8 not divisible by mesh axis size 3",
+}
+
+
+def _against_no_mesh(got, want):
+    """The mesh's value and gradient against ``mesh=None``'s on the same
+    device, at the float64 gates' tolerances (the two differ in the
+    order of summation only)."""
+    (v, g), (v0, g0) = got, want
+    worst = 0.0
+    for k in g0:
+        err = (g[k] - g0[k]).double().abs()
+        tol = MODEL_GRAD_RTOL * g0[k].double().abs() + MODEL_GRAD_ATOL_OF_MAX * float(
+            g0[k].double().abs().max())
+        worst = max(worst, float((err / tol.clamp_min(1e-30)).max()))
+    rel = abs(float(v) - float(v0)) / abs(float(v0))
+    return rel <= MODEL_VALUE_RTOL and worst <= 1.0, {"value_rel_err": rel,
+                                                      "grad_err_over_tol": worst}
+
+
+def phase_mesh(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], slots=MESH_SLOTS, nuts=MESH_NUTS,
+               find_map_steps=MESH_FIND_MAP["num_steps"]):
+    import dataclasses
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.diagnostics import Metrics
+    from pytensor_federated_torch.parallel.sharded import sharded_compute
+    from pytensor_federated_torch.samplers import find_map
+
+    cuda = torch.device(dev).type == "cuda"
+    card = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device=card)
+    mesh = pft.make_mesh({"shards": slots}, devices=[card] * slots)
+    model = pft.FederatedLinearRegression(data, mesh=mesh)
+    plain = pft.FederatedLinearRegression(data)
+    data64 = _as_f64_cpu(data)
+    model64 = pft.FederatedLinearRegression(data64)
+    points = _three_points(model.init_params())
+    out = {"phase": "mesh", "size": [8, n_obs], "mesh": dict(mesh.shape),
+           "devices": [str(d) for d in mesh.devices.reshape(-1)],
+           "planned_evals": {"gates": 12 + 2 * MESH_TIMED_EVALS, "find_map": find_map_steps,
+                             "nuts": 68 * sum(nuts[1:])}}
+
+    # Values and gradients: against float64 on the CPU, against mesh=None
+    # on the card, and bit for bit against a rerun.
+    ok64, against64 = _against_f64(model, model64, points)
+    p = points["normal"]
+    v, g = model.logp_and_grad(p)
+    okp, against_plain = _against_no_mesh((v, g), plain.logp_and_grad(p))
+    v2, g2 = model.logp_and_grad(p)
+    rerun_bits = torch.equal(v, v2) and all(torch.equal(g[k], g2[k]) for k in g)
+    per_shard = model.fed.per_shard_logps(p)
+    per_shard64 = model64.fed.per_shard_logps(_as_f64_cpu(p))
+    computed = sharded_compute(model.fed.per_shard_logp, model.fed.data, mesh=mesh)(p)
+    rel = lambda a, b: float(((a.detach().cpu().double() - b).abs() / b.abs()).max())
+    idx = torch.tensor(MESH_MINIBATCH_LOCAL, device=card)
+    global_idx = torch.tensor([j * (8 // slots) + i for j, row in enumerate(MESH_MINIBATCH_LOCAL)
+                               for i in row])
+    mb = model.fed._minibatch_estimate(p, idx)
+    mb64 = model64.fed._minibatch_estimate(_as_f64_cpu(p), global_idx)
+    gen = torch.Generator(device=card).manual_seed(1)
+    drawn = model.fed._draw_shards(gen, 4)
+    values = {
+        "against_f64": against64, "against_no_mesh": against_plain, "rerun_bits": rerun_bits,
+        "per_shard_rel_err": rel(per_shard, per_shard64),
+        "sharded_compute_equals_per_shard": torch.equal(computed, per_shard),
+        "minibatch_rel_err": rel(mb, mb64),
+        "minibatch_draw_shape": list(drawn.shape),
+    }
+    values_ok = (ok64 and okp and rerun_bits and values["per_shard_rel_err"] <= MODEL_VALUE_RTOL
+                 and values["sharded_compute_equals_per_shard"]
+                 and values["minibatch_rel_err"] <= MODEL_VALUE_RTOL
+                 and values["minibatch_draw_shape"] == [slots, 4 // slots])
+    out["values"] = values
+    out["ms_per_logp_and_grad"] = {
+        "mesh": _ms_per_eval(lambda: model.logp_and_grad(p), dev, MESH_TIMED_EVALS),
+        "no_mesh": _ms_per_eval(lambda: plain.logp_and_grad(p), dev, MESH_TIMED_EVALS),
+    }
+    out["cuda_launches_per_logp_and_grad"] = {
+        "mesh": _launches(lambda: model.logp_and_grad(p), dev, 3),
+        "no_mesh": _launches(lambda: plain.logp_and_grad(p), dev, 3),
+    }
+
+    # The JAX package's error strings for meshes that do not divide.
+    errors = {}
+    three = pft.make_mesh({"shards": 3}, devices=[card] * 3)
+    for name, call in (
+        ("federated_logp", lambda: pft.FederatedLinearRegression(data, mesh=three)),
+        ("minibatch", lambda: model.fed.logp_minibatch(p, gen, 2)),
+        ("sharded_compute", lambda: sharded_compute(model.fed.per_shard_logp, model.fed.data,
+                                                    mesh=three)),
+    ):
+        try:
+            call()
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    errors_ok = errors == MESH_ERRORS
+
+    # find_map on the mesh against find_map in float64 on the CPU.
+    t0 = time.perf_counter()
+    est = find_map(model.logp, model.init_params(), num_steps=find_map_steps,
+                   learning_rate=MESH_FIND_MAP["learning_rate"])
+    _sync(dev)
+    map_s = time.perf_counter() - t0
+    est64 = find_map(model64.logp, _as_f64_cpu(model.init_params()), num_steps=find_map_steps,
+                     learning_rate=MESH_FIND_MAP["learning_rate"])
+    map_err = max(float((est[k].detach().cpu().double() - est64[k]).abs().max()) for k in est64)
+    out["find_map"] = {"steps": find_map_steps, "seconds": map_s, "max_abs_err_vs_f64": map_err,
+                       "atol": MESH_FIND_MAP_ATOL, "slope": float(est["slope"])}
+    map_ok = map_err <= MESH_FIND_MAP_ATOL
+
+    # NUTS on the mesh, its evaluations replayed from a CUDA graph.
+    metrics = Metrics()
+    lp = pft.instrument_logp(model.logp, "mesh.logp", registry=metrics)
+    chains, warmup, draws = nuts
+    gen = torch.Generator(device=card).manual_seed(11)
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = pft.samplers.sample(lp, model.init_params(), generator=gen, num_warmup=warmup,
+                              num_samples=draws, num_chains=chains, dense_mass=True,
+                              cuda_graph=cuda)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    eager = metrics.snapshot()["counters"].get("mesh.logp.evals", 0)
+    replays = res.extra["graph_replays"] if cuda else 0
+    s = res.samples
+    derived = {"intercept": s["intercept"], "slope": s["slope"], "sigma": torch.exp(s["log_sigma"])}
+    ess = pft.samplers.effective_sample_size(derived)
+    ref = nuts_line.get("recovered", {})
+    moments, nuts_ok = {}, bool(ref)
+    for k, d in derived.items():
+        mean, sd = float(d.double().mean()), float(d.double().std())
+        mcse = sd / float(ess[k]) ** 0.5
+        r = ref.get(k, {})
+        combined = math.sqrt(mcse**2 + r.get("mcse", float("inf")) ** 2)
+        within = abs(mean - r.get("mean", float("inf"))) <= 4 * combined
+        moments[k] = {"mean": mean, "sd": sd, "ess": float(ess[k]), "mcse": mcse,
+                      "nuts_large_mean": r.get("mean"), "nuts_large_mcse": r.get("mcse"),
+                      "within_4_combined_mcse": within}
+        nuts_ok &= within
+    finite = all(bool(torch.isfinite(v).all()) for v in s.values())
+    out["nuts"] = {
+        "chains": chains, "warmup": warmup, "draws": draws, "dense_mass": True,
+        "cuda_graph": cuda, "wall_s": wall, "eager_evals": eager, "graph_replays": replays,
+        "ms_per_grad_eval": wall * 1e3 / max(eager + replays, 1),
+        "mean_tree_depth": float(res.stats["depth"].float().mean()),
+        "divergences": int(res.stats["diverging"].sum()),
+        "max_split_rhat": max(float(v.max()) for v in pft.samplers.split_rhat(s).values()),
+        "moments": moments, "finite": finite,
+    }
+
+    # The device report and the probe.
+    loads = pft.get_load() if cuda else pft.get_load([card])
+    healthy = pft.healthy_devices() if cuda else pft.healthy_devices([card])
+    out["get_load"] = [dataclasses.asdict(x) for x in loads]
+    out["healthy_devices"] = [str(d) for d in healthy]
+    load_ok = (not cuda) or (loads[0].platform == "gpu" and (loads[0].bytes_limit or 0) > 0
+                             and (loads[0].bytes_in_use or 0) > 0 and healthy == [card])
+    out["gates"] = {"values": values_ok, "errors": errors_ok, "find_map": map_ok,
+                    "nuts_means": nuts_ok and finite, "instrument_logp": eager > 0,
+                    "device_report": load_ok}
+    return all(out["gates"].values()), out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
-                                           "slice7", "slice8", "slice9", "slice10"],
+                                           "slice7", "slice8", "slice9", "slice10", "slice11"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
@@ -4204,7 +4838,8 @@ def main() -> int:
                              "and model_check only; slice8: device, build, nuts, federated "
                              "and pool only; slice9: device, build and gateway only; "
                              "slice10: device, build, nuts, vi, particles, sgld, sbc, "
-                             "checkpoint and demos only")
+                             "checkpoint and demos only; slice11: device, build, nuts_large, "
+                             "optim and mesh only")
     args = parser.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4269,6 +4904,8 @@ def main() -> int:
         ("sbc", phase_sbc),
         ("checkpoint", phase_checkpoint),
         ("demos", phase_demos),
+        ("optim", phase_optim),
+        ("mesh", lambda: phase_mesh(lines.get("nuts_large", {}))),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -4289,6 +4926,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] == "gateway"]
     elif args.only == "slice10":
         phases = [ph for ph in phases if ph[0] in ("nuts",) + SLICE10]
+    elif args.only == "slice11":
+        phases = [ph for ph in phases if ph[0] in ("nuts_large", "optim", "mesh")]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -4325,6 +4964,9 @@ def main() -> int:
     all_ok &= clean
     emit({"timing": {"phases": timing, "total_s": time.perf_counter() - t_script}})
     if args.only:
+        if not all_ok:
+            print("chip_smoke: a phase failed: " + json.dumps(
+                [p for p, line in lines.items() if not line.get("ok")]), file=sys.stderr)
         return 0 if all_ok else 1
 
     large = next(
@@ -4340,9 +4982,11 @@ def main() -> int:
         # phase, by the eight nodes, over its NUTS run and its windows; in
         # the gateway phase, by its nodes over the gateway's traffic; in
         # the slice-10 phases, over their fits and runs, the checks
-        # against float64 excluded).
+        # against float64 excluded; in the optim phase, by the owner
+        # nodes over both sharded runs, the driver-centric control
+        # excluded).
         "launches": sum(lines[p].get("kernel_launches", 0)
-                        for p in ("nuts", "nuts_large", "pool", "gateway") + SLICE10)
+                        for p in ("nuts", "nuts_large", "pool", "gateway", "optim") + SLICE10)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),
@@ -4368,7 +5012,10 @@ def main() -> int:
         ],
     }]})
     if not all_ok:
-        print("chip_smoke: a phase failed", file=sys.stderr)
+        failed = {p: sorted(g for g, v in line.get("gates", {}).items() if not v)
+                  for p, line in lines.items() if not line.get("ok")}
+        print(f"chip_smoke: a phase failed: {json.dumps(failed)}"
+              f"{'' if clean else ' (and the leftovers check)'}", file=sys.stderr)
         return 1
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,7 +13,11 @@ linear-Gaussian state-space models with their parallel-in-time Kalman
 filter, parallel tempering (``samplers.pt_sample``) and FLOP accounting
 (:mod:`.flopcount`).  Variational inference, SMC, the ensemble
 sampler, SGLD and SBC (:mod:`.samplers`), and checkpointed sampling
-that resumes bit for bit (:func:`sample_checkpointed`).  Entry points run on ``cuda`` unless the caller
+that resumes bit for bit (:func:`sample_checkpointed`).  The shards axis
+spreads over a single-controller device mesh (:func:`make_mesh`), and
+:mod:`.diagnostics` counts, times and profiles evaluations.  The
+sharded optimizer (:mod:`.optim`) keeps Adam's state on the pool's
+nodes, one shard each.  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 
 The federation wire: a node serves its logp+grad over npwire frames on
@@ -24,9 +28,10 @@ package imports neither JAX nor the JAX package, and it imports
 ``grpc`` only at the first gRPC call.
 """
 
-from . import flopcount, precision, samplers
+from . import diagnostics, flopcount, precision, samplers
 from .checkpoint import load_pytree, sample_checkpointed, save_pytree
 from .convert import params_from_jax, sharded_data_from_jax
+from .diagnostics import instrument_logp, profile_trace
 from .models import (
     FederatedExactGP,
     FederatedLGSSMPanel,
@@ -51,23 +56,49 @@ from .models import (
 from .models.linear import linreg_prior_logp
 from .ops import (
     ArraysToArraysOp,
+    AsyncArraysToArraysOp,
+    AsyncLogpGradOp,
+    AsyncLogpOp,
     LogpGradOp,
     LogpOp,
     ParallelLogpGrad,
+    blackbox_compute,
     blackbox_logp_grad,
+    from_logp_fn,
+    fuse,
     parallel_host_call,
 )
 from .ops.linreg_kernel import linreg_logp_grad_fn, linreg_reductions, linreg_reductions_ref
-from .parallel.packing import ShardedData, pack_shards
-from .parallel.sharded import FederatedLogp, NoFederatedShards, sharded_compute
+from .parallel import (
+    CHAINS_AXIS,
+    SEQ_AXIS,
+    SHARDS_AXIS,
+    FederatedLogp,
+    NoFederatedShards,
+    ShardedData,
+    get_load,
+    healthy_devices,
+    make_mesh,
+    pack_shards,
+    sharded_compute,
+    single_device_mesh,
+)
 from .precision import pdot, split_dot, wrap_policy
-from .signatures import ShapeDtypeStruct, spec_of
+from .signatures import ArraysSpec, ComputeFn, LogpFn, LogpGradFn, ShapeDtypeStruct, spec_of
 from .utils import LOG_2PI, resolve_device
 from .wrappers import logp_grad_from_logp, wrap_logp_fn, wrap_logp_grad_fn
 
 __all__ = [
+    "CHAINS_AXIS",
     "LOG_2PI",
+    "SEQ_AXIS",
+    "SHARDS_AXIS",
+    "ArraysSpec",
     "ArraysToArraysOp",
+    "AsyncArraysToArraysOp",
+    "AsyncLogpGradOp",
+    "AsyncLogpOp",
+    "ComputeFn",
     "FederatedExactGP",
     "FederatedLGSSMPanel",
     "FederatedLinearRegression",
@@ -76,6 +107,8 @@ __all__ = [
     "FederatedSparseGP",
     "HierarchicalLogisticRegression",
     "HierarchicalRadonGLM",
+    "LogpFn",
+    "LogpGradFn",
     "LogpGradOp",
     "LogpOp",
     "LotkaVolterraModel",
@@ -83,8 +116,12 @@ __all__ = [
     "ParallelLogpGrad",
     "ShapeDtypeStruct",
     "ShardedData",
+    "blackbox_compute",
     "blackbox_logp_grad",
+    "diagnostics",
     "flopcount",
+    "from_logp_fn",
+    "fuse",
     "generate_gp_data",
     "generate_hier_logistic_data",
     "generate_lgssm_data",
@@ -92,6 +129,9 @@ __all__ = [
     "generate_lv_data",
     "generate_node_data",
     "generate_radon_data",
+    "get_load",
+    "healthy_devices",
+    "instrument_logp",
     "kalman_logp_parallel",
     "kalman_logp_seq",
     "linreg_logp_grad_fn",
@@ -102,17 +142,20 @@ __all__ = [
     "load_pytree",
     "logp_grad_from_logp",
     "make_lv_model",
+    "make_mesh",
     "pack_shards",
     "parallel_host_call",
     "params_from_jax",
     "pdot",
     "precision",
+    "profile_trace",
     "resolve_device",
     "sample_checkpointed",
     "samplers",
     "save_pytree",
     "sharded_compute",
     "sharded_data_from_jax",
+    "single_device_mesh",
     "spec_of",
     "split_dot",
     "wrap_logp_fn",

@@ -2,11 +2,11 @@
 
 Port of the JAX package's ``demos/demo_model.py``.  Two modes:
 
-- ``--local`` (default): the federated shards live on one device; the
-  posterior's data term is the linreg kernel (one fused value+grad
-  launch per evaluation); MAP and NUTS run on that device.  The JAX
-  package spreads the shards over a device mesh; the port has no mesh
-  yet, so the model is built without one.
+- ``--local`` (default): the federated shards are spread over a mesh of
+  the visible GPUs, as the JAX package spreads them over its devices;
+  each slot's data term is the linreg kernel (one fused value+grad
+  launch per slot and evaluation); MAP and NUTS run on the first
+  slot's device.
 - ``--remote``: connect to a running node pool (``demo_node.py``) over
   gRPC, embed each remote node as a differentiable blackbox op, fan the
   nodes out concurrently per evaluation, and sample on the CPU — the
@@ -32,25 +32,39 @@ def run_local(n_shards: int = 8, draws: int = 300, device: Any = None):
     ``draws`` draws) on the flagship posterior with ``n_shards`` shards
     of 96 observations, on ``device`` (``cuda`` unless ``"cpu"``).
 
-    The data term is ``linreg_logp_grad_fn`` (the kernel on CUDA, its
-    plain version on the CPU) and the prior the model's; the JAX package
-    builds ``FederatedLinearRegression`` over a mesh here, and the port
-    builds it without one (the mesh is not ported yet)."""
+    The mesh is the JAX twin's: one slot per visible GPU when they
+    divide ``n_shards``, else none (and none on the CPU).  Each slot's
+    block of shards goes through ``linreg_logp_grad_fn`` (the kernel on
+    CUDA, its plain version on the CPU) with its own offsets, the
+    slots' terms are added on the first slot's device, and the prior is
+    the model's."""
     import torch
 
     from ..models.linear import FederatedLinearRegression, generate_node_data
     from ..ops.linreg_kernel import linreg_logp_grad_fn
+    from ..parallel import make_mesh
+    from ..parallel.sharded import _cross_slot_sum, _shard_data_to_mesh
     from ..samplers import find_map, sample
     from ..utils import resolve_device
 
     dev = resolve_device(device)
     data, _ = generate_node_data(n_shards, n_obs=96, device=dev)
-    model = FederatedLinearRegression(data)
-    (x, y), mask = data.tree()
-    kern = linreg_logp_grad_fn(x, y, mask)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 0
+    mesh = make_mesh({"shards": n_dev}) if n_dev and n_shards % n_dev == 0 else None
+    model = FederatedLinearRegression(data, mesh=mesh)
+    blocks = [data.tree()] if mesh is None else _shard_data_to_mesh(data.tree(), mesh, "shards")
+    per_slot = n_shards // len(blocks)
+    kerns = [(mask.device, linreg_logp_grad_fn(x, y, mask)) for (x, y), mask in blocks]
 
     def logp(params):
-        return model.prior_logp(params) + kern.data_logp(params)
+        # The prior first: the order in which the terms enter the graph
+        # sets the order in which the backward adds their gradients.
+        prior, terms = model.prior_logp(params), []
+        for j, (slot_dev, kern) in enumerate(kerns):
+            p = {k: v.to(slot_dev) for k, v in params.items()}
+            p["offsets"] = p["offsets"][..., j * per_slot : (j + 1) * per_slot]
+            terms.append(kern.data_logp(p))
+        return prior + _cross_slot_sum(terms)
 
     est = find_map(logp, model.init_params(), num_steps=1000)
     _log.info("MAP: intercept=%.3f slope=%.3f", float(est["intercept"]), float(est["slope"]))

@@ -26,6 +26,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from .hierbase import HierarchicalGLMBase, log_halfnormal_draw, per_draw
 
@@ -121,6 +122,7 @@ class FederatedPoissonGLM(HierarchicalGLMBase):
     """Hierarchical Poisson regression over federated shards."""
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None  # see HierarchicalGLMBase
     _init_log_tau = -1.0
@@ -147,6 +149,7 @@ class FederatedNegBinGLM(HierarchicalGLMBase):
     shards, with a learned dispersion."""
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None  # see HierarchicalGLMBase
     _init_log_tau = -1.0

@@ -19,6 +19,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from .hierbase import HierarchicalGLMBase, log_halfnormal_draw, per_draw
 
@@ -82,6 +83,7 @@ class FederatedGammaGLM(HierarchicalGLMBase):
     """Hierarchical Gamma regression over federated shards."""
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None  # see HierarchicalGLMBase
 

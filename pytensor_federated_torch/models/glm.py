@@ -18,11 +18,12 @@ sizes — pad+mask via pack_shards).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from ..parallel.sharded import FederatedLogp
 from ..utils import value_and_grad
@@ -64,6 +65,7 @@ class HierarchicalRadonGLM:
     """Partial-pooling GLM over county shards, on the device of ``data``."""
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         n = self.data.n_shards
@@ -80,7 +82,7 @@ class HierarchicalRadonGLM:
             sigma = torch.exp(params["log_sigma"])
             return torch.sum(_normal_logpdf(y, mu, sigma) * mask)
 
-        self.fed = FederatedLogp(per_shard_logp, tree)
+        self.fed = FederatedLogp(per_shard_logp, tree, mesh=self.mesh)
         self.n_counties = n
 
     def prior_logp(self, params: Any) -> torch.Tensor:

@@ -38,6 +38,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import SHARDS_AXIS, Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from ..parallel.sharded import FederatedLogp, sharded_compute
 from ..precision import matmul_precision_ctx, pdot, resolve_policy, wrap_policy
@@ -350,6 +351,8 @@ class FederatedSparseGP:
         data: ShardedData,
         inducing: Any,
         *,
+        mesh: Optional[Mesh] = None,
+        axis: str = SHARDS_AXIS,
         kernel: str = "sqexp",
         f32_policy: Optional[str] = None,
     ):
@@ -359,8 +362,8 @@ class FederatedSparseGP:
         like = data.data[0]
         self.inducing = torch.as_tensor(inducing, dtype=like.dtype, device=like.device)
         self.m = int(self.inducing.shape[0])
+        self.mesh = mesh
         m = self.m
-        z = self.inducing
         self.kernel = kernel
         # The VFE trace residual needs a constant prior diagonal — raises
         # here for "linear"-containing specs.
@@ -373,6 +376,7 @@ class FederatedSparseGP:
             ``b = V y``, and the VFE trace residual ``Σ_j (k_jj - q_jj)``
             accumulated pointwise (each summand small and positive)."""
             (x, y), mask = shard
+            z = self.inducing.to(x.device)  # a mesh slot's device
             variance, lengthscale, _ = _unpack(params)
             kzz = kern(z, z, variance, lengthscale) + _JITTER * _jitter_scale(variance) * _eye(m, z)
             l_kzz = cholesky_or_nan(kzz)
@@ -389,7 +393,7 @@ class FederatedSparseGP:
             n = torch.sum(mask)
             return {"a": a, "b": b, "resid": resid, "y2": y2, "n": n}
 
-        stats_fn = sharded_compute(per_shard_stats, data.tree())
+        stats_fn = sharded_compute(per_shard_stats, data.tree(), mesh=mesh, axis=axis)
         # Kept for the posterior, which reuses the likelihood's statistics.
         self._stats_fn = stats_fn
         self._kern = kern
@@ -540,12 +544,15 @@ class FederatedExactGP:
         self,
         data: ShardedData,
         *,
+        mesh: Optional[Mesh] = None,
+        axis: str = SHARDS_AXIS,
         kernel: str = "sqexp",
         f32_policy: Optional[str] = None,
     ):
         # One env consultation at construction; see FederatedSparseGP.
         policy = resolve_policy(f32_policy)
         self.f32_policy = policy
+        self.mesh = mesh
         self.kernel = kernel
         self._kern = get_kernel(kernel, policy=policy)
         kern = self._kern
@@ -566,7 +573,9 @@ class FederatedExactGP:
             # remove the padded slots' logN(0|0,1) contributions
             return ll + 0.5 * LOG_2PI * torch.sum(1.0 - mask)
 
-        self.fed = FederatedLogp(wrap_policy(per_shard_logp, policy), data.tree())
+        self.fed = FederatedLogp(
+            wrap_policy(per_shard_logp, policy), data.tree(), mesh=mesh, axis=axis
+        )
         self.data = data
 
     def logp(self, params: Any) -> torch.Tensor:

@@ -68,9 +68,10 @@ def linear_predictor(X, w, b, compute_dtype=None):
 
 
 class HierarchicalGLMBase:
-    """Dataclass mixin: subclasses declare ``data`` and ``prior_scale``
-    fields and call :meth:`_post_init` from their ``__post_init__``.
-    The model runs on the device that holds ``data``."""
+    """Dataclass mixin: subclasses declare ``data``, ``mesh`` and
+    ``prior_scale`` fields and call :meth:`_post_init` from their
+    ``__post_init__``.  The model runs on the device that holds
+    ``data``."""
 
     #: initial value for log_tau (families tune their own warm start)
     _init_log_tau: float = 0.0
@@ -110,7 +111,7 @@ class HierarchicalGLMBase:
             ll = self._obs_logpmf(params, y, eta)
             return torch.sum(ll * mask)
 
-        self.fed = FederatedLogp(per_shard_logp, ((X, y), mask, shard_ids))
+        self.fed = FederatedLogp(per_shard_logp, ((X, y), mask, shard_ids), mesh=self.mesh)
         self.n_shards = n
         self.n_features = X.shape[-1]
 

@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from ..parallel.sharded import FederatedLogp
 from ..utils import LOG_2PI, value_and_grad
@@ -133,6 +134,7 @@ class FederatedLinearRegression:
     """
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 10.0
     offset_scale: float = 0.3
     use_suffstats: bool = False
@@ -164,7 +166,7 @@ class FederatedLinearRegression:
                 ll = _normal_logpdf(y, mu, sigma)
                 return torch.sum(ll * mask)
 
-        self.fed = FederatedLogp(per_shard_logp, tree)
+        self.fed = FederatedLogp(per_shard_logp, tree, mesh=self.mesh)
         self.n_shards = n
 
     # -- prior + posterior ------------------------------------------------

@@ -20,6 +20,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from ..parallel.sharded import FederatedLogp, NoFederatedShards
 from ..utils import tree_leaves, value_and_grad
@@ -96,6 +97,7 @@ class HierarchicalLogisticRegression(HierarchicalGLMBase):
     """
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None  # see HierarchicalGLMBase
 
@@ -129,6 +131,7 @@ class FederatedLogisticRegression:
     """
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None
     use_suffstats: bool = False
@@ -138,6 +141,11 @@ class FederatedLogisticRegression:
         (X, y), mask = self.data.tree()
         self.device = mask.device
         if self.flatten:
+            if self.mesh is not None:
+                raise ValueError(
+                    "flatten=True collapses the shard axis and cannot "
+                    "be sharded over a mesh; use use_suffstats instead"
+                )
             if self.use_suffstats:
                 raise ValueError(
                     "flatten=True and use_suffstats=True are distinct "
@@ -169,7 +177,7 @@ class FederatedLogisticRegression:
                 sp = torch.sum(_log1p_exp(logits) * mask)
                 return syx @ params["w"] + sy * params["b"] - sp
 
-            self.fed = FederatedLogp(per_shard_logp, ((X, syx, sy), mask))
+            self.fed = FederatedLogp(per_shard_logp, ((X, syx, sy), mask), mesh=self.mesh)
             self._loglik = self.fed.logp
         else:
 
@@ -179,7 +187,7 @@ class FederatedLogisticRegression:
                 ll = y * logits - _log1p_exp(logits)
                 return torch.sum(ll * mask)
 
-            self.fed = FederatedLogp(per_shard_logp, self.data.tree())
+            self.fed = FederatedLogp(per_shard_logp, self.data.tree(), mesh=self.mesh)
             self._loglik = self.fed.logp
         self.n_features = tree_leaves(self.data.data)[0].shape[-1]
 

@@ -21,11 +21,12 @@ proper prior on the unconstrained coordinate (no Jacobian terms).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from ..parallel.sharded import FederatedLogp
 from ..utils import value_and_grad
@@ -82,6 +83,7 @@ class FederatedGaussianMixture:
 
     data: ShardedData
     n_components: int
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
 
     def __post_init__(self):
@@ -99,7 +101,7 @@ class FederatedGaussianMixture:
             ll = mixture_loglik(y, log_w, mu, sigma)
             return torch.sum(ll * mask)
 
-        self.fed = FederatedLogp(per_shard_logp, ((y,), mask, shard_ids))
+        self.fed = FederatedLogp(per_shard_logp, ((y,), mask, shard_ids), mesh=self.mesh)
         self.n_shards = n
 
     @staticmethod

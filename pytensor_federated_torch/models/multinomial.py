@@ -19,11 +19,12 @@ product and one logsumexp over K.  The hierarchical variant
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from ..parallel.sharded import FederatedLogp
 from ..utils import tree_leaves, value_and_grad
@@ -131,6 +132,7 @@ class FederatedSoftmaxRegression:
 
     data: ShardedData
     n_classes: int
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     #: partial sufficient statistics: the picked-logit term is LINEAR in
     #: (W, b) — Σ_i eta[y_i] = Σ_k (Σ_{i: y_i=k} x_i)·w_k + n_k b_k — so
@@ -162,7 +164,7 @@ class FederatedSoftmaxRegression:
                 picked = torch.sum(sx_s * params["W"]) + torch.sum(sn_s * params["b"])
                 return picked - torch.sum(lse * m_s)
 
-            self.fed = FederatedLogp(per_shard_logp, ((X, sx, sn), mask))
+            self.fed = FederatedLogp(per_shard_logp, ((X, sx, sn), mask), mesh=self.mesh)
         else:
 
             def per_shard_logp(params, shard):
@@ -170,7 +172,7 @@ class FederatedSoftmaxRegression:
                 ll = _categorical_loglik(y, X @ params["W"] + params["b"])
                 return torch.sum(ll * mask)
 
-            self.fed = FederatedLogp(per_shard_logp, self.data.tree())
+            self.fed = FederatedLogp(per_shard_logp, self.data.tree(), mesh=self.mesh)
         self.n_features = tree_leaves(self.data.data)[0].shape[-1]
 
     def prior_logp(self, params: Any) -> torch.Tensor:
@@ -239,6 +241,7 @@ class HierarchicalSoftmaxRegression(HierarchicalGLMBase):
 
     data: ShardedData = None
     n_classes: int = 2
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
 
     def __post_init__(self):

@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.sharded import FederatedLogp
 from ..utils import resolve_device, value_and_grad
 from .linear import _normal_logpdf
@@ -118,6 +119,7 @@ class LotkaVolterraModel:
     dt: float
     n_steps: int
     obs_idx: Any
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         self.device = self.observations.device
@@ -130,13 +132,14 @@ class LotkaVolterraModel:
             # per evaluation, shared by every shard, and only the
             # observation likelihood below is batched over shards.
             theta = torch.exp(params["log_theta"])
-            traj = rk4_integrate(theta, y0, self.dt, self.n_steps)
-            mu = torch.log(torch.clamp(traj[obs_idx], min=1e-6))
+            dev = shard_obs.device  # a mesh slot's device
+            traj = rk4_integrate(theta, y0.to(dev), self.dt, self.n_steps)
+            mu = torch.log(torch.clamp(traj[obs_idx.to(dev)], min=1e-6))
             sigma = torch.exp(params["log_sigma"])
             log_obs = torch.log(shard_obs)
             return torch.sum(_normal_logpdf(log_obs, mu, sigma) - log_obs)
 
-        self.fed = FederatedLogp(per_shard_logp, self.observations)
+        self.fed = FederatedLogp(per_shard_logp, self.observations, mesh=self.mesh)
 
     def prior_logp(self, params: Any) -> torch.Tensor:
         # LogNormal(log 0.5, 1) on each theta; HalfNormal(1) on sigma.
@@ -173,7 +176,9 @@ class LotkaVolterraModel:
         return sample(self.logp, self.init_params(), generator=generator, **kwargs)
 
 
-def make_lv_model(n_shards: int = 8, *, device: Any = None, **kwargs):
+def make_lv_model(
+    n_shards: int = 8, *, mesh: Optional[Mesh] = None, device: Any = None, **kwargs
+):
     obs, meta = generate_lv_data(n_shards, device=device, **kwargs)
     model = LotkaVolterraModel(
         observations=obs,
@@ -181,5 +186,6 @@ def make_lv_model(n_shards: int = 8, *, device: Any = None, **kwargs):
         dt=meta["dt"],
         n_steps=meta["n_steps"],
         obs_idx=meta["obs_idx"],
+        mesh=mesh,
     )
     return model, meta

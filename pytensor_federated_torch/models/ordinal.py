@@ -23,6 +23,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from .hierbase import HierarchicalGLMBase
 from .linear import _normal_logpdf
@@ -101,6 +102,7 @@ class FederatedOrdinalRegression(HierarchicalGLMBase):
 
     data: ShardedData
     n_categories: int
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None  # see HierarchicalGLMBase
     _init_log_tau = -1.0

@@ -22,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from .hierbase import HierarchicalGLMBase, log_halfnormal_draw, per_draw
 
@@ -80,6 +81,7 @@ class FederatedRobustRegression(HierarchicalGLMBase):
     """Hierarchical Student-t regression over federated shards."""
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None  # see HierarchicalGLMBase
 

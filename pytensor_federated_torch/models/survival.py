@@ -25,6 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from ..parallel.packing import ShardedData, pack_shards
 from .hierbase import HierarchicalGLMBase, per_draw
 from .linear import _normal_logpdf
@@ -94,6 +95,7 @@ class FederatedWeibullAFT(HierarchicalGLMBase):
     """Hierarchical Weibull AFT over federated shards."""
 
     data: ShardedData
+    mesh: Optional[Mesh] = None
     prior_scale: float = 5.0
     compute_dtype: Optional[Any] = None  # see HierarchicalGLMBase
     _init_log_tau = -1.0

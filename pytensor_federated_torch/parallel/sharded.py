@@ -1,22 +1,30 @@
 """The sharded evaluator: ``logp(params) = Σ_shards per_shard_logp``.
 
-The port of the JAX package's ``FederatedLogp`` without a mesh: the
-per-shard callable is mapped over the leading shard axis of the data
-tree with ``torch.func.vmap`` and the per-shard contributions are
-summed on the device.  Gradients come from ``torch.autograd`` through
-the map and the sum, so one backward pass gives every parameter's
-gradient.  The mesh placement (the shards axis across GPUs) is not
-ported yet.
+The port of the JAX package's ``FederatedLogp``: the per-shard callable
+is mapped over the leading shard axis of the data tree with
+``torch.func.vmap`` and the per-shard contributions are summed on the
+device.  Gradients come from ``torch.autograd`` through the map and the
+sum, so one backward pass gives every parameter's gradient.
+
+With a mesh (:mod:`.mesh`) each slot along the mesh axis holds a
+contiguous block of shards on its device; the parameters reach each
+slot by ``.to(device)``, each slot maps its own block, and the slots'
+sums cross onto the first slot's device and are added in slot order,
+where the JAX package's ``shard_map`` ends in a ``lax.psum``.  The
+backward of the copies adds every slot's gradient into the one
+parameter, so a replicated parameter's gradient is the unsharded one.
+The slots on one device run one after another on its stream.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..utils import tree_leaves, tree_map, value_and_grad
+from .mesh import SHARDS_AXIS, Mesh
 
 # per_shard_logp(params, shard_data) -> scalar logp contribution of one shard.
 PerShardLogpFn = Callable[[Any, Any], torch.Tensor]
@@ -34,6 +42,30 @@ def _leading_dim(data: Any) -> int:
             f"all data leaves must share a leading shard axis, got {dims}"
         )
     return dims.pop()
+
+
+def _shard_data_to_mesh(data: Any, mesh: Mesh, axis: str) -> List[Any]:
+    """Split the stacked data tree's leading axis into ``mesh.shape[axis]``
+    contiguous blocks, slot ``j``'s block on its device: the one-time
+    layout after which shard data never moves between slots."""
+    devices = mesh.slot_devices(axis)
+    per_slot = _leading_dim(data) // len(devices)
+    return [
+        tree_map(lambda leaf: leaf[j * per_slot : (j + 1) * per_slot].to(d), data)
+        for j, d in enumerate(devices)
+    ]
+
+
+def _to(tree: Any, device: torch.device) -> Any:
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _cross_slot_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The slots' sums added on the first slot's device, in slot order."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(total.device)
+    return total
 
 
 class NoFederatedShards:
@@ -77,15 +109,42 @@ class FederatedLogp:
     otherwise holds every intermediate until its ``vjp_fn`` runs.
     Values and gradients equal the non-remat path's.
 
+    With ``mesh`` (a :class:`.mesh.Mesh`), ``n_shards`` must divide
+    evenly over the mesh's ``axis``; each slot evaluates its block of
+    shards on its device and the slots' sums are added on the first
+    slot's device (the module docstring).  Mesh and no-mesh results
+    differ in the order of summation only.
+
     Every method works under an outer ``torch.func.vmap`` over chains
     (the shard map is then a vmap nested in it).
     """
 
-    def __init__(self, per_shard_logp: PerShardLogpFn, data: Any, *, remat: bool = False):
+    def __init__(
+        self,
+        per_shard_logp: PerShardLogpFn,
+        data: Any,
+        *,
+        mesh: Optional[Mesh] = None,
+        axis: str = SHARDS_AXIS,
+        remat: bool = False,
+    ):
         self.per_shard_logp = per_shard_logp
+        self.axis = axis
+        self.mesh = mesh
         self.n_shards = _leading_dim(data)
         self.data = data
         self.remat = remat
+        if mesh is not None:
+            if axis not in mesh.axis_names:
+                raise ValueError(f"mesh has no axis {axis!r}: {mesh.axis_names}")
+            axis_size = mesh.shape[axis]
+            if self.n_shards % axis_size != 0:
+                raise ValueError(
+                    f"n_shards={self.n_shards} not divisible by mesh axis "
+                    f"{axis!r} of size {axis_size}"
+                )
+            self._slot_devices = mesh.slot_devices(axis)
+            self._slots = _shard_data_to_mesh(data, mesh, axis)
 
     def _shard_map(self, params: Any, data: Any) -> torch.Tensor:
         def run(params, data):
@@ -108,13 +167,27 @@ class FederatedLogp:
 
         return _Remat.apply(run_flat, flat, *d_leaves)
 
+    def _per_slot(self, params: Any, blocks: Sequence[Any]) -> List[torch.Tensor]:
+        """Each slot's per-shard vector over its ``blocks`` entry, on its
+        device."""
+        return [
+            self._shard_map(_to(params, d), block)
+            for d, block in zip(self._slot_devices, blocks)
+        ]
+
     def per_shard_logps(self, params: Any) -> torch.Tensor:
-        """Vector of per-shard contributions."""
-        return self._shard_map(params, self.data)
+        """Vector of per-shard contributions (with a mesh, the slots'
+        vectors in slot order on the first slot's device)."""
+        if self.mesh is None:
+            return self._shard_map(params, self.data)
+        first = self._slot_devices[0]
+        return torch.cat([v.to(first) for v in self._per_slot(params, self._slots)], dim=-1)
 
     def logp(self, params: Any) -> torch.Tensor:
         """Scalar total log-potential."""
-        return self.per_shard_logps(params).sum()
+        if self.mesh is None:
+            return self.per_shard_logps(params).sum()
+        return _cross_slot_sum([v.sum(-1) for v in self._per_slot(params, self._slots)])
 
     def logp_and_grad(self, params: Any) -> Tuple[torch.Tensor, Any]:
         """(logp, grads) from one forward and one backward pass."""
@@ -148,19 +221,39 @@ class FederatedLogp:
         return value_and_grad(lambda p: self._minibatch_estimate(p, idx), params)
 
     def _minibatch_estimate(self, params: Any, idx: torch.Tensor) -> torch.Tensor:
-        """``S/k`` times the summed logp of the shards ``idx`` (``k`` of
-        them) — the estimator :meth:`logp_minibatch` evaluates on a
-        random draw of ``idx``."""
-        sub = tree_map(lambda a: torch.index_select(a, 0, idx.to(a.device)), self.data)
-        return self._shard_map(params, sub).sum() * (self.n_shards / int(idx.shape[0]))
+        """``S/k`` times the summed logp of the ``k`` shards ``idx`` — the
+        estimator :meth:`logp_minibatch` evaluates on a random draw of
+        ``idx``.  Without a mesh ``idx`` is ``(k,)`` shard indices; with
+        one it is ``(axis_size, k / axis_size)``, each row indices into
+        its slot's own block, so no shard data moves between slots."""
+        scale = self.n_shards / int(idx.numel())
+        take = lambda tree, i: tree_map(lambda a: torch.index_select(a, 0, i.to(a.device)), tree)
+        if self.mesh is None:
+            return self._shard_map(params, take(self.data, idx)).sum() * scale
+        blocks = [take(block, i) for block, i in zip(self._slots, idx)]
+        return _cross_slot_sum([v.sum(-1) for v in self._per_slot(params, blocks)]) * scale
 
     def _draw_shards(self, generator: torch.Generator, num_shards: int) -> torch.Tensor:
         if not (0 < num_shards <= self.n_shards):
             raise ValueError(
                 f"num_shards must be in 1..{self.n_shards}, got {num_shards}"
             )
-        perm = torch.randperm(self.n_shards, generator=generator, device=generator.device)
-        return perm[:num_shards]
+        if self.mesh is None:
+            perm = torch.randperm(self.n_shards, generator=generator, device=generator.device)
+            return perm[:num_shards]
+        axis_size = self.mesh.shape[self.axis]
+        if num_shards % axis_size != 0:
+            raise ValueError(
+                f"num_shards={num_shards} not divisible by mesh axis "
+                f"{self.axis!r} of size {axis_size}"
+            )
+        per_slot = self.n_shards // axis_size
+        return torch.stack([
+            torch.randperm(per_slot, generator=generator, device=generator.device)[
+                : num_shards // axis_size
+            ]
+            for _ in range(axis_size)
+        ])
 
 
 class _Remat(torch.autograd.Function):
@@ -192,14 +285,42 @@ class _Remat(torch.autograd.Function):
         return (None, *vjp_fn(grad_out), *(None,) * len(data))
 
 
-def sharded_compute(per_shard_fn: PerShardComputeFn, data: Any) -> Callable[[Any], Any]:
+def sharded_compute(
+    per_shard_fn: PerShardComputeFn,
+    data: Any,
+    *,
+    mesh: Optional[Mesh] = None,
+    axis: str = SHARDS_AXIS,
+) -> Callable[[Any], Any]:
     """Generic arrays->arrays over every shard, outputs stacked by shard.
 
     For compute that is not a log-potential: returns ``fn(params) ->
-    tree`` whose leaves have a leading ``n_shards`` axis."""
-    _leading_dim(data)
+    tree`` whose leaves have a leading ``n_shards`` axis.  With a mesh
+    each slot maps its block of shards on its device with its own copy
+    of ``params`` (a gradient taken inside ``per_shard_fn`` stays the
+    slot's own), and the slots' outputs are stacked in slot order on the
+    first slot's device."""
+    n_shards = _leading_dim(data)
+    if mesh is None:
 
-    def fn(params):
-        return torch.func.vmap(lambda d: per_shard_fn(params, d))(data)
+        def fn(params):
+            return torch.func.vmap(lambda d: per_shard_fn(params, d))(data)
 
-    return fn
+        return fn
+
+    axis_size = mesh.shape[axis]
+    if n_shards % axis_size != 0:
+        raise ValueError(
+            f"n_shards={n_shards} not divisible by mesh axis size {axis_size}"
+        )
+    devices = mesh.slot_devices(axis)
+    blocks = _shard_data_to_mesh(data, mesh, axis)
+
+    def fn_mesh(params):
+        outs = [
+            torch.func.vmap(lambda d, p=_to(params, dev): per_shard_fn(p, d))(block)
+            for dev, block in zip(devices, blocks)
+        ]
+        return tree_map(lambda *leaves: torch.cat([v.to(devices[0]) for v in leaves]), *outs)
+
+    return fn_mesh

@@ -58,23 +58,28 @@ def gaussian_entropy(dim: int, log_sd_sum: Any = 0.0) -> Any:
     return log_sd_sum + 0.5 * dim * (1.0 + LOG_2PI)
 
 
-def adam_step(params, grads, mu, nu, count: int, learning_rate: float):
-    """One optax Adam step over lists of tensors: ``(params, mu, nu)``.
+def adam_updates(grads, mu, nu, count: int, learning_rate: float):
+    """optax Adam's update for step ``count`` over lists of tensors:
+    ``(updates, mu, nu)``; the step adds ``updates`` to the parameters.
 
     optax's order: moments ``(1-b) g + b m``, bias corrections ``1 -
-    b**count`` in the parameters' precision (float32, or float64 as
+    b**count`` in the gradients' precision (float32, or float64 as
     optax computes them under ``jax_enable_x64``), ``(m̂ / (sqrt(v̂) +
-    eps))`` scaled by ``-learning_rate`` and added."""
-    real = np.float64 if params[0].dtype == torch.float64 else np.float32
+    eps))`` scaled by ``-learning_rate``."""
+    real = np.float64 if grads[0].dtype == torch.float64 else np.float32
     bc1 = float(1 - real(_B1) ** count)
     bc2 = float(1 - real(_B2) ** count)
     mu = [(1 - _B1) * g + _B1 * m for g, m in zip(grads, mu)]
     nu = [(1 - _B2) * (g**2) + _B2 * v for g, v in zip(grads, nu)]
-    params = [
-        p + (-learning_rate) * ((m / bc1) / (torch.sqrt(v / bc2) + _EPS))
-        for p, m, v in zip(params, mu, nu)
-    ]
-    return params, mu, nu
+    updates = [(-learning_rate) * ((m / bc1) / (torch.sqrt(v / bc2) + _EPS)) for m, v in zip(mu, nu)]
+    return updates, mu, nu
+
+
+def adam_step(params, grads, mu, nu, count: int, learning_rate: float):
+    """One optax Adam step over lists of tensors: ``(params, mu, nu)``,
+    the :func:`adam_updates` added to ``params``."""
+    updates, mu, nu = adam_updates(grads, mu, nu, count, learning_rate)
+    return [p + u for p, u in zip(params, updates)], mu, nu
 
 
 def scan_vi(

@@ -965,3 +965,93 @@ def test_demo_grpc_node_on_the_card_answers_and_is_gone_after_sigterm():
         time.sleep(0.1)
     assert not os.path.exists(f"/proc/{nodes[0]}") or open(
         f"/proc/{nodes[0]}/stat").read().rsplit(")", 1)[1].split()[0] == "Z"
+
+
+@pytest.mark.gpu
+def test_sharded_optimizer_on_the_card_is_bit_identical_to_driver_centric_adam(tmp_path):
+    """Owners over tcp, each computing the flagship's full gradient on
+    the card through the kernel (one launch per update request), take
+    Adam steps on 4 shards of the 11 parameters; the result equals Adam
+    on the whole gradient, bit for bit, and each shard's Adam count
+    equals its accepted steps."""
+    import threading
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.optim import ShardStore, ShardedOptimizer, make_update_compute
+    from pytensor_federated_torch.optim._adam import adam
+    from pytensor_federated_torch.samplers.util import ravel
+    from pytensor_federated_torch.service import TcpArraysClient, serve_tcp_once
+
+    dev = _cuda()
+    data, _ = pft.generate_node_data(8, n_obs=4096, seed=123, device=dev)
+    model = pft.FederatedLinearRegression(data)
+    (x, y), mask = data.tree()
+    kern = linreg_logp_grad_fn(x, y, mask)
+    flat0, unravel = ravel(model.init_params())
+    flat0 = flat0.cpu().numpy()
+
+    def grad_fn(params, *_):
+        flat = torch.as_tensor(np.array(params, np.float32), device=dev).requires_grad_(True)
+        p = unravel(flat)
+        loss = -(model.prior_logp(p) + kern.data_logp(p))
+        (g,) = torch.autograd.grad(loss, flat)
+        return loss.detach().cpu().numpy(), g.cpu().numpy()
+
+    store = ShardStore(str(tmp_path))
+    clients = []
+    for _ in range(2):
+        ready, port = threading.Event(), []
+        compute = make_update_compute(grad_fn, adam(0.05), store,
+                                      params_of=lambda a: np.asarray(a[0]).ravel())
+        threading.Thread(target=serve_tcp_once, args=(compute,), daemon=True,
+                         kwargs={"port": 0, "concurrent": True,
+                                 "ready_callback": lambda p, r=ready, o=port: (o.append(p),
+                                                                               r.set())}).start()
+        assert ready.wait(30)
+        clients.append(TcpArraysClient("127.0.0.1", port[0], timeout_s=60.0))
+    try:
+        opt = ShardedOptimizer(flat0.size, clients=clients + clients)  # two shards per node
+        params, steps = flat0.copy(), 20
+        before = linreg_reductions.launches
+        for _ in range(steps):
+            params, accepted = opt.apply(params, opt.step([params]))
+            assert accepted == [0, 1, 2, 3]
+        assert linreg_reductions.launches - before == 4 * steps
+        ref, state = flat0.copy(), adam(0.05).init(torch.from_numpy(flat0))
+        for _ in range(steps):
+            upd, state = adam(0.05).update(torch.from_numpy(grad_fn(ref)[1]), state)
+            ref = ref + upd.numpy()
+        np.testing.assert_array_equal(params, ref)
+        assert opt.versions == [steps] * 4 and opt.max_reply_elems == 3
+        for part in opt.parts:
+            assert int(store.load(part).opt_leaves[0]) == steps
+    finally:
+        for c in clients:
+            c.close()
+
+
+@pytest.mark.gpu
+def test_mesh_on_the_card_matches_float64_on_the_cpu():
+    """The flagship over a 4-slot mesh of one card ([cuda:0] * 4), on the
+    plain per-shard path: value rtol 1e-5 and gradient within 1e-4 |g| +
+    1e-5 max|g| of the float64 model on the CPU; a rerun gives the same
+    bits."""
+    import pytensor_federated_torch as pft
+
+    dev = _cuda()
+    data, _ = pft.generate_node_data(8, n_obs=131_072, seed=123, device=dev)
+    mesh = pft.make_mesh({"shards": 4}, devices=[torch.device("cuda", 0)] * 4)
+    model = pft.FederatedLinearRegression(data, mesh=mesh)
+    data64 = pft.ShardedData(data=tree_map(lambda t: t.cpu().double(), data.data),
+                             mask=data.mask.cpu().double())
+    model64 = pft.FederatedLinearRegression(data64)
+    p = {k: v + 0.1 for k, v in model.init_params().items()}
+    v, g = model.logp_and_grad(p)
+    v2, g2 = model.logp_and_grad(p)
+    assert torch.equal(v, v2) and all(torch.equal(g[k], g2[k]) for k in g)
+    v64, g64 = model64.logp_and_grad({k: t.cpu().double() for k, t in p.items()})
+    assert abs(float(v) - float(v64)) <= 1e-5 * abs(float(v64))
+    for k in g64:
+        err = (g[k].cpu().double() - g64[k]).abs()
+        assert bool((err <= 1e-4 * g64[k].abs() + 1e-5 * g64[k].abs().max()).all()), k
+    assert torch.device("cuda", 0) in pft.healthy_devices()

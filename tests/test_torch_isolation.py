@@ -21,7 +21,7 @@ SUBPACKAGES = (
     "service", "telemetry", "faultinject", "routing", "ops", "signatures",
     "wrappers", "fanout_exec", "models", "parallel", "samplers", "precision",
     "flopcount", "_assoc_scan", "gateway", "ppl", "checkpoint", "demos", "demos.demo_node",
-    "demos.demo_model",
+    "demos.demo_model", "optim", "diagnostics",
 )
 
 
@@ -208,13 +208,65 @@ def test_entry_points_default_to_cuda(monkeypatch):
                            fromlist=["x"]).make_node_compute(50000),
         lambda: __import__("pytensor_federated_torch.demos.demo_model",
                            fromlist=["x"]).run_local(draws=1),
+        lambda: pft.make_mesh(),
+        lambda: pft.make_mesh({"shards": 1}),
+        lambda: pft.single_device_mesh(),
+        lambda: pft.get_load(),
+        lambda: pft.healthy_devices(),
+        lambda: pft.diagnostics.log_device_load(),
     ],
     ids=["generate_lgssm_data", "default_lgssm_params", "generate_gp_data", "FederatedLGSSMPanel",
-         "peak_flops", "demo_node.make_node_compute", "demo_model.run_local"],
+         "peak_flops", "demo_node.make_node_compute", "demo_model.run_local", "make_mesh",
+         "make_mesh_shape", "single_device_mesh", "get_load", "healthy_devices",
+         "log_device_load"],
 )
 def test_new_entry_points_default_to_cuda(monkeypatch, call):
-    """The state-space, GP, FLOP and demo entry points ask for CUDA
-    without ``device=`` and raise when there is none."""
+    """The state-space, GP, FLOP, demo and mesh entry points ask for CUDA
+    without ``device=`` (a mesh, without ``devices=``) and raise when
+    there is none: no mesh is built on the CPU by default."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+#: JAX top-level names whose modules the port does not have yet, each
+#: with the ROADMAP Queue 1 item that ports it.
+UNPORTED_TOP_LEVEL = {
+    "__version__": "item 6 (version.py)",
+    "fed": "item 5 (fed/)",
+    "ppl": "item 5 (ppl/: only ppl/elbo.py is ported)",
+}
+#: Top-level names of the port that the JAX package's __init__ does not
+#: export (it exports them from its subpackages).
+PORT_ONLY_TOP_LEVEL = {
+    "LOG_2PI", "FederatedExactGP", "FederatedLGSSMPanel", "FederatedLinearRegression",
+    "FederatedLogisticRegression", "FederatedSparseGP", "HierarchicalLogisticRegression",
+    "HierarchicalRadonGLM", "LotkaVolterraModel", "NoFederatedShards", "ShapeDtypeStruct",
+    "flopcount", "generate_gp_data", "generate_hier_logistic_data", "generate_lgssm_data",
+    "generate_logistic_data", "generate_lv_data", "generate_node_data", "generate_radon_data",
+    "kalman_logp_parallel", "kalman_logp_seq", "linreg_logp_grad_fn", "linreg_prior_logp",
+    "linreg_reductions", "linreg_reductions_ref", "linreg_suffstats", "make_lv_model",
+    "params_from_jax", "resolve_device", "samplers", "sharded_data_from_jax",
+}
+
+
+def _all_of(init: Path) -> list:
+    """The literal ``__all__`` of a package ``__init__``, read by AST."""
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets
+        ):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{init} has no literal __all__")
+
+
+def test_top_level_all_is_the_jax_packages_minus_the_unported():
+    """The port's top-level ``__all__`` is the JAX package's, less the
+    names whose modules are not ported, plus the port's own listed
+    names; every name resolves."""
+    jax_all = _all_of(ROOT / "pytensor_federated_tpu" / "__init__.py")
+    port_all = _all_of(ROOT / "pytensor_federated_torch" / "__init__.py")
+    assert len(port_all) == len(set(port_all))
+    assert set(port_all) - PORT_ONLY_TOP_LEVEL == set(jax_all) - set(UNPORTED_TOP_LEVEL)
+    assert PORT_ONLY_TOP_LEVEL <= set(port_all) and set(UNPORTED_TOP_LEVEL) <= set(jax_all)
+    assert [n for n in port_all if not hasattr(pft, n)] == []
