@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only slice10   # device, build, nuts, vi, particles,
                                            # sgld, sbc, checkpoint, demos
     python3 chip_smoke.py --only slice11   # device, build, nuts_large, optim, mesh
+    python3 chip_smoke.py --only slice12   # device, build, nuts_large, multichain, seq
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -40,8 +41,15 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    form, at the origin and at a perturbed point; double backward raises.
 5. ``nuts``    — ``sample()`` with NUTS on the flagship posterior through
    the kernel, 4 chains x 250 warmup + 250 draws in lockstep: every
-   leaf is one batched evaluation of the four chains, and one kernel
-   launch (the phase counts both; they must be equal).
+   leaf is one batched evaluation of the four chains, replayed from a
+   CUDA graph (``cuda_graph=True``).  A replay never reaches the kernel
+   wrapper's host-side launch counter, so the phase first captures a
+   graph of the same evaluation, holds its replays bit for bit against
+   eager calls at 8 states, times 50 eager calls and 50 replays, and
+   counts the kernel's launches per replay with the profiler over 10
+   replays (rounded up: the profiler can drop an event, never add one):
+   it must be exactly one.  The phase's launches are that count times
+   the run's replays, plus the graph's eager warm-up calls.
 6. ``nuts_large`` — the same at 8 x 131,072 observations, so the kernel
    moves real bytes on every leapfrog step: 1 chain x 300 warmup + 300
    draws with a dense mass matrix.  At this size the data pin every
@@ -56,10 +64,11 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    to move it across; with 600 + 600 it read 1.011, with 900 draws
    1.029 on an H100).  The run was 600 + 600 until the families and
    model_check phases needed its time; PERF.md records each run's
-   R-hat.
+   R-hat.  Replayed from a CUDA graph and gated as ``nuts``.
 7. ``federated`` — the federation wire.  The kernel is built above,
-   before any node starts.  Four node processes (``spawn``) each rebuild
-   shards {2i, 2i+1} of the flagship data from its seed, on the card,
+   before any node starts.  Four node processes (forked from the fork
+   server, ``_node_context``) each rebuild shards {2i, 2i+1} of the
+   flagship data from its seed, on the card,
    and serve their logp+grad through the kernel with ``serve_tcp_once``,
    one port per size.  A driver on the CPU fans out to them with
    ``ParallelLogpGrad`` and adds the prior.  It checks the remote value
@@ -73,7 +82,8 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    of the nuts phase's.  Each node reports its GPU and as many kernel
    launches as requests.
 8. ``pool`` — the replica pool and the colocated lanes.  Eight node
-   processes (``spawn``), two replicas per group of shards {2g, 2g+1}:
+   processes (forked from the fork server), two replicas per group of
+   shards {2g, 2g+1}:
    groups 0-1 serve one replica over shm (``serve_shm``) and one over
    ring (``serve_ring``), groups 2-3 one over shm and one over TCP; each
    node serves ``device_compute_fn(..., batched=True)`` over the kernel
@@ -95,8 +105,8 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    Also printed: ``df`` of the arena directory and the arena size,
    ``os.cpu_count()``, the futex shim and the ring syscall counts, the
    critical path of a short traced run and an SLO burn verdict.
-9. ``gateway`` — the gateway tier.  Two node processes (``spawn``) on
-   the card, each serving all 8 shards of the flagship at 8 x 131,072
+9. ``gateway`` — the gateway tier.  Two node processes (forked from the
+   fork server) on the card, each serving all 8 shards of the flagship at 8 x 131,072
    through the kernel (``device_compute_fn(..., batched=True)``,
    ``max_batch=64``) with ``serve_tcp_once``, behind a ``NodePool(
    transport="tcp")`` (round robin, a probe thread) and a
@@ -189,11 +199,13 @@ it runs every phase and needs one card.  Phases, one JSON line each:
 17. ``tempering`` — config 12 (bench_suite.py:1435): parallel tempering
    on a 16-sigma bimodal in 8 dimensions, 2 stacks x 8 temperatures, 500
    warmup + 1,000 draws, against NUTS with 4 chains and jitter 5 at the
-   same lengths (its timed run replayed from a CUDA graph: the eager
-   run's draws); each run once after a 20-iteration warm-up run; wall,
-   rank-normalized min-ESS/s, max R-hat, per-chain mode-balance error,
-   batched evaluations and CUDA launches per iteration; gates PT balance
-   < 0.3 and the NUTS control's > 0.35 (bench_suite.py:1555-1558).
+   lengths of 125 warmup + 250 draws; each timed run replays its
+   evaluation from a CUDA graph (the eager run's draws), once after a
+   20-iteration eager warm-up run; wall, rank-normalized min-ESS/s, max
+   R-hat, per-chain mode-balance error, batched evaluations and CUDA
+   launches per iteration; gates PT balance < 0.3 (the mean over 32 more
+   runs in one graphed batch) and the NUTS control's > 0.35
+   (bench_suite.py:1555-1558).
 
 18. ``families`` — every GLM family of the port at config 5's shard
    layout, 64 shards x 64 observations x 8 features (bench_suite.py:750):
@@ -246,7 +258,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    uniformity screen passes, and the negative control's U-shaped ranks
    fail it.
 24. ``checkpoint`` — ``sample_checkpointed`` on the flagship through the
-   kernel, 1 chain x (100 + 100) in chunks of 25: a run interrupted after
+   kernel, 1 chain x (50 + 75) in chunks of 25: a run interrupted after
    chunk 2 and resumed gives an uninterrupted run's draws bit for bit; a
    changed config restarts from chunk 0.
 25. ``demos`` — ``run_node_pool`` in a child process starts three gRPC
@@ -255,7 +267,7 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    200)`` recovers the slope over the nodes; SIGTERM to the pool's
    manager takes every node process and port away within 10 s.
 26. ``optim`` — the sharded optimizer over the pool.  Four owner node
-   processes (``spawn``; two over shm, two over TCP) each hold the
+   processes (forked from the fork server; two over shm, two over TCP) each hold the
    flagship's 8 shards at 8 x 131,072 on the card and answer every
    versioned update request with the full gradient of the negative
    posterior through the kernel (one launch), Adam on their shard of the
@@ -286,8 +298,38 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    run one after another on the card's stream: the phase shows the
    partition, the per-slot work and the cross-slot sum, not concurrency
    across cards.
+28. ``multichain`` — ``multichain_sample`` on the flagship at 8 x 131,072
+   over a ``{"chains": 2, "shards": 2}`` mesh of the card, 2 chains x
+   (100 + 100) of NUTS with a dense mass, its evaluations replayed from a
+   CUDA graph, from the generating parameters with trees up to depth 8:
+   each chain's value and gradient against the unsharded model on the
+   card and against float64 on the CPU; split R-hat across the chains
+   < 1.05 of what the data identify (slope, log_sigma, each shard's
+   intercept + offset; the raw parameters' recorded); means within 4
+   combined MCSEs of ``nuts_large``'s;
+   a short run twice on one generator, bit for bit.  Then
+   ``sample(chain_sharding=...)`` (4 chains over ``{"chains": 2}``,
+   graphed, through the kernel: two launches per replay, one per block)
+   and ``chees_sample(chain_sharding=...)`` (8 chains, eager, through the
+   kernel) at 8 x 64, and ``pt_sample(temp_sharding=...)`` on the
+   tempering phase's bimodal (8 rungs over ``{"temps": 8}``), each against
+   the same run unsharded: the same bits, or means within 4 combined
+   MCSEs where the bits differ.
+29. ``seq`` — ``SeqShardedLGSSM`` at config 6's size (T = 4,096, d = 2,
+   k = 1) over ``{"seq": 4}`` of the card, with no mask and with ~30% of
+   the steps missing (t = 1 among them): logp and gradient against
+   ``kalman_logp_parallel``, smoothed moments against
+   ``kalman_smoother_parallel``, the forecast against
+   ``kalman_forecast``, each on the card and in float64 on the CPU (the
+   lgssm phase's tolerances); 64 simulation-smoother draws against the
+   smoothed moments; ms and CUDA launches per logp+grad with and without
+   the mesh; ``SeqShardedAR1`` at T = 4,096 against itself without the
+   mesh and against float64; ``ring_attention`` at (4,096, 64), causal
+   and not, and ``ring_all_pairs_sum`` against dense float64 on the CPU.
+   Both phases show the partition and the cross-slot work on one card,
+   not concurrency across cards.
 
-Phases 10-19 and 27 launch no kernel of the port: the JAX package computes
+Phases 10-19, 27 and 29 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Every phase runs under a deadline of three times its expected seconds
@@ -312,7 +354,8 @@ with ``--only slice7`` the families and model_check phases only, with
 ``--only slice9`` the gateway phase only, with ``--only slice10`` the nuts
 phase (the reference posterior) and phases 20-25, with ``--only slice11``
 the nuts_large phase (the mesh phase's reference posterior) and phases
-26-27;
+26-27, with ``--only slice12`` the nuts_large phase (the multichain
+phase's reference posterior) and phases 28-29;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -445,15 +488,15 @@ def emit(obj) -> None:
 
 # Each phase runs under a deadline of DEADLINE_FACTOR times its expected
 # seconds, at least DEADLINE_MIN_S.  The expected seconds are the
-# phases' times on the H100 host (PERF.md section 5: PR 11's runs),
+# phases' times on the H100 host (PERF.md section 5),
 # rounded up.
 PHASE_EXPECTED_S = {
-    "build": 10, "kernels": 20, "autograd": 5, "nuts": 95, "nuts_large": 100,
-    "federated": 85, "pool": 95, "gateway": 65, "radon": 20, "logistic": 20,
+    "build": 10, "kernels": 20, "autograd": 5, "nuts": 35, "nuts_large": 50,
+    "federated": 90, "pool": 105, "gateway": 60, "radon": 25, "logistic": 25,
     "lv_ode": 25, "wide_logistic": 5, "chees": 10, "lgssm": 50, "gp": 5,
-    "tempering": 80, "families": 10, "model_check": 80,
-    "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 15, "demos": 40,
-    "optim": 30, "mesh": 50,
+    "tempering": 25, "families": 10, "model_check": 80,
+    "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 12, "demos": 40,
+    "optim": 15, "mesh": 50, "multichain": 45, "seq": 15,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -465,13 +508,28 @@ def _deadline_s(name: str) -> float:
 
 
 def _helper_pids() -> set:
-    """multiprocessing's resource tracker: a helper process that
-    ``spawn`` starts once and that exits when this process does (it reads
-    until its pipe from here closes), so no check counts it."""
-    from multiprocessing import resource_tracker
+    """multiprocessing's helper processes: the resource tracker, and the
+    fork server that node processes start from (``_node_context``).  Each
+    starts once and exits when this process does (each reads until its
+    pipe from here closes), so no check counts them."""
+    from multiprocessing import forkserver, resource_tracker
 
-    pid = getattr(resource_tracker._resource_tracker, "_pid", None)
-    return {pid} if pid else set()
+    pids = {getattr(resource_tracker._resource_tracker, "_pid", None),
+            getattr(forkserver._forkserver, "_forkserver_pid", None)}
+    return pids - {None}
+
+
+def _node_context():
+    """The multiprocessing context every node process of the script
+    starts from: a fork server that has imported this script, torch and
+    the port once, so that a node forks with them already imported
+    instead of importing them anew (with ``spawn``, eight nodes importing
+    torch at once on the host's 8 cores took ~20 s).  The server never
+    touches CUDA; each node initialises CUDA for itself, as under
+    ``spawn``."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", "torch", "pytensor_federated_torch"])
+    return ctx
 
 
 def _live_descendants() -> list:
@@ -927,10 +985,10 @@ def _flat_close(a, b, value_rtol=AUTOGRAD_RTOL_VALUE, grad_rtol=AUTOGRAD_RTOL_GR
         "value_rel_err": rel, "grad_max_abs_err": float((ga - gb).abs().max())}
 
 
-def _flagship(n_obs):
+def _flagship(n_obs, dev="cuda"):
     import pytensor_federated_torch as pft
 
-    data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device="cuda")
+    data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device=dev)
     model = pft.FederatedLinearRegression(data)
     (x, y), mask = data.tree()
     kern = pft.linreg_logp_grad_fn(x, y, mask)
@@ -991,29 +1049,109 @@ def _recovered(derived):
     return out
 
 
-def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
+NUTS_EAGER_EVALS = 50  # eager batched evaluations timed beside the graphed run
+NUTS_BITS_POINTS = 8  # states at which a replay is held bit for bit against an eager call
+
+
+def _kernel_launches_per_replay(replay, x, calls=10):
+    """The linreg kernel's launches on the card per replay of ``replay``
+    at ``x``, counted by the profiler over ``calls`` replays (a replay
+    never reaches the wrapper's host-side counter), and the kernel
+    events it saw; ``(None, 0)`` when the profiler records no device
+    activity at all, after three tries.
+
+    A replay launches the same kernels every time, and the profiler on
+    the GPU host now and then drops an event but never adds one (it has
+    seen 4 of 5 and 9 of 10 expected events, with a correlation warning
+    on stderr; PERF.md section 6), so the count per replay is the events
+    seen over the replays, rounded up."""
+    for _ in range(3):
+        on_card = _card_events(lambda: replay(x), calls)
+        if on_card:
+            seen = sum("linreg" in e.name for e in on_card)
+            return math.ceil(seen / calls), seen
+    return None, 0
+
+
+def _graph_check(lg, flat0, chains, dev, seed, timed=NUTS_EAGER_EVALS):
+    """A batched value+grad ``lg`` of ``chains`` chains near ``flat0``:
+    eager ms per call; on CUDA, a graph of it (as ``sample(cuda_graph=
+    True)`` captures one) whose replays are held bit for bit against
+    eager calls at NUTS_BITS_POINTS states, its ms per replay, and the
+    linreg kernel's launches per replay (profiler)."""
+    from pytensor_federated_torch.samplers.mcmc import graph_batch_logp_and_grad
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    points = flat0 + 0.05 * torch.randn((NUTS_BITS_POINTS, chains) + flat0.shape, generator=g,
+                                        device=flat0.device)
+    out = {"eager_ms_per_batched_eval": _ms_per_eval(lambda: lg(points[0]), dev, timed),
+           "eager_evals_timed": timed}
+    if torch.device(dev).type == "cuda":
+        replay = graph_batch_logp_and_grad(lg, points[0])
+        bits = True
+        for x in points:
+            (v0, g0), (v1, g1) = lg(x), replay(x)
+            bits &= torch.equal(v0, v1) and torch.equal(g0, g1)
+        per_replay, seen = _kernel_launches_per_replay(replay, points[0])
+        out.update(
+            replay_bits_equal_eager=bits, bits_points=NUTS_BITS_POINTS,
+            replay_ms_per_batched_eval=_ms_per_eval(lambda: replay(points[0]), dev, timed),
+            kernel_launches_per_replay=per_replay, kernel_events_seen=seen,
+            replays_profiled=10)
+    return out
+
+
+def _graphed_launches(graph, host_launches, replays):
+    """The linreg kernel's launches over a ``sample(cuda_graph=True)``
+    run: the graph's three warm-up calls launch on the card and count on
+    the host; its capture counts one on the host and launches nothing;
+    each replay launches the profiler's count."""
+    return host_launches - 1 + (graph.get("kernel_launches_per_replay") or 0) * replays
+
+
+def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7, dev="cuda"):
+    """NUTS through the kernel, its batched evaluation replayed from a
+    CUDA graph (``sample(cuda_graph=True)``).  A replay never reaches the
+    kernel wrapper's host-side launch counter, so the launch gate reads
+    the profiler: one kernel launch on the card per replayed batched
+    evaluation, checked on a graph of the same evaluation, and the
+    phase's launches are that count times the run's replays plus the
+    graph's eager warm-up launches.  Before the run, replays of that
+    graph are held bit for bit against eager calls at the same states,
+    and eager calls are timed."""
     import pytensor_federated_torch as pft
     from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.samplers.mcmc import (
+        make_batch_logp_and_grad,
+        make_flat_logp_and_grad,
+    )
 
-    _, model, _, posterior = _flagship(n_obs)
-    grad_evals = 0
+    cuda = torch.device(dev).type == "cuda"
+    _, model, _, posterior = _flagship(n_obs, dev)
+    flat_logp, flat0, unravel, _ = make_flat_logp_and_grad(posterior, model.init_params())
+    graph = _graph_check(make_batch_logp_and_grad(flat_logp, unravel), flat0, chains, dev,
+                         seed + 1000)
 
-    def counted(p):
-        nonlocal grad_evals
-        grad_evals += 1
-        return posterior(p)
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _sync(dev)
     linreg_reductions.launches = 0
     t0 = time.perf_counter()
     res = pft.samplers.sample(
-        counted, model.init_params(), generator=gen,
-        num_warmup=warmup, num_samples=draws, num_chains=chains, dense_mass=dense_mass,
+        posterior, model.init_params(), generator=gen, num_warmup=warmup, num_samples=draws,
+        num_chains=chains, dense_mass=dense_mass, cuda_graph=cuda,
     )
-    torch.cuda.synchronize()
+    _sync(dev)
     wall = time.perf_counter() - t0
-    launches = linreg_reductions.launches
+    host_launches = linreg_reductions.launches
+    if cuda:
+        replays = grad_evals = res.extra["graph_replays"]
+        launches = _graphed_launches(graph, host_launches, replays)
+        launch_ok = (graph["kernel_launches_per_replay"] == 1
+                     and graph["replay_bits_equal_eager"] and replays > 0)
+        graph.update(graph_replays=replays, eager_kernel_launches=host_launches - 1)
+    else:
+        grad_evals = launches = host_launches
+        launch_ok = host_launches > 0
 
     s = res.samples
     derived = {
@@ -1026,10 +1164,8 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
     recovered = _recovered(derived)
     finite = all(bool(torch.isfinite(v).all()) for v in s.values())
     depth = res.stats["depth"].float()
-    # One kernel launch per evaluation of the chain batch (a NUTS leaf):
-    # the count of launches must equal the count of batched evaluations.
     ok = (
-        launches == grad_evals > 0
+        launch_ok
         and max_rhat < 1.05
         and finite
         and all(r["within_4sd"] for r in recovered.values())
@@ -1038,15 +1174,17 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7):
         "phase": name,
         "size": [8, n_obs],
         "chains": chains, "warmup": warmup, "draws": draws, "dense_mass": dense_mass,
+        "cuda_graph": cuda,
         "wall_s": wall,
-        # Evaluations of the whole chain batch (each one call of the
-        # vmapped posterior), and of single chains in them.
+        # Evaluations of the whole chain batch (each one replay of the
+        # graphed, vmapped posterior), and of single chains in them.
         "grad_evals": grad_evals,
         "chain_grad_evals": grad_evals * chains,
         "kernel_launches": launches,
         "launches_per_grad_eval": launches / max(grad_evals, 1),
         "ms_per_grad_eval": wall * 1e3 / max(grad_evals, 1),
         "ms_per_draw": wall * 1e3 / (chains * (warmup + draws)),
+        "graph": graph,
         "mean_tree_depth": float(depth.mean()),
         # A lockstep transition runs as many leaves as its deepest chain.
         "mean_max_tree_depth": float(depth.max(dim=0).values.mean()),
@@ -1218,7 +1356,6 @@ def _wire_split(posterior, p, rounds=8, per_round=8):
 
 
 def phase_federated(nuts_line, seed=7):
-    import multiprocessing as mp
 
     import pytensor_federated_torch as pft
     from pytensor_federated_torch.samplers.util import ravel
@@ -1227,7 +1364,7 @@ def phase_federated(nuts_line, seed=7):
 
     cpu = resolve_device("cpu")  # the driver holds 11 floats
     spans.set_enabled(False)  # on only for the short span run
-    ctx = mp.get_context("spawn")
+    ctx = _node_context()
     procs, conns, closers = [], [], []
     try:
         t0 = time.perf_counter()
@@ -1540,7 +1677,6 @@ def _flat_bits(value, grads):
 
 def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POOL_WINDOWS, seed=7):
     import asyncio
-    import multiprocessing as mp
     import tempfile
     import threading
 
@@ -1563,7 +1699,7 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
     lanes = [(g, lane) for g in range(POOL_GROUPS) for lane in ("shm", POOL_SECOND_LANE[g])]
     n_arena_conns = 2 * sum(lane != "tcp" for _, lane in lanes) + 2  # both sizes, and a restart
     arena_bytes, arena = _arena_budget(n_arena_conns)
-    ctx = mp.get_context("spawn")
+    ctx = _node_context()
     procs, conns, nodes, pools, closers = {}, {}, {}, [], []
     victim = (0, "shm")
     marks = {}  # seconds from the phase's start to the end of each part
@@ -2135,7 +2271,6 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
     import collections
     import gc
     import importlib.util
-    import multiprocessing as mp
     import struct
     import threading
 
@@ -2157,7 +2292,7 @@ def phase_gateway(dev="cuda", n_obs=LARGE_PATH[1], requests=GATEWAY_REQUESTS,
     def mark(name):
         marks[name] = time.perf_counter() - t_phase
 
-    ctx = mp.get_context("spawn")
+    ctx = _node_context()
     nodes = {}  # name -> {"proc", "conn", "shared", "info"}; lives kept in `lives`
     lives = collections.defaultdict(list)  # name -> [node record per life]
 
@@ -3034,7 +3169,7 @@ GP_TIMED_EVALS = 50
 # < 0.3, NUTS's > 0.35.
 BIMODAL = dict(dim=8, sep=4.0, width=0.5)
 PT_RUN = dict(num_chains=2, num_temps=8, beta_min=0.01, num_leapfrog=8)
-PT_LENGTHS, NUTS_LENGTHS = (500, 1000), (500, 1000)
+PT_LENGTHS, NUTS_LENGTHS = (500, 1000), (125, 250)
 NUTS_CONTROL = dict(num_chains=4, jitter=5.0)
 WARMUP_ITERS = 20
 # The rated runs' generator seeds, bench_suite's own (:1499); the warm-up
@@ -3262,10 +3397,10 @@ def phase_tempering(dev="cuda", pt_lengths=PT_LENGTHS, nuts_lengths=NUTS_LENGTHS
         evals += 1
         return _bimodal_logp(p)
 
-    def run_pt(seed, warmup, draws):
+    def run_pt(seed, warmup, draws, cuda_graph=False):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return pft.samplers.pt_sample(counted, init, generator=gen, num_warmup=warmup,
-                                      num_samples=draws, **PT_RUN)
+                                      num_samples=draws, cuda_graph=cuda_graph, **PT_RUN)
 
     def run_nuts(seed, warmup, draws, cuda_graph=False):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3285,18 +3420,16 @@ def phase_tempering(dev="cuda", pt_lengths=PT_LENGTHS, nuts_lengths=NUTS_LENGTHS
             on_card = _card_events(lambda: run(0, n_iter // 2, n_iter // 2), 1)
             launches = len(on_card) / n_iter
         evals = 0
-        # The NUTS control's timed run replays its evaluation from a CUDA
-        # graph (the eager run's draws, bit for bit; 36.9 s eager on the
-        # parent's card run): its balance gate is unchanged, its min-ESS/s
-        # is the graphed sampler's.
-        graphed = name == "nuts" and torch.device(dev).type == "cuda"
+        # Both timed runs replay their evaluation from a CUDA graph (the
+        # eager runs' draws, bit for bit; PT's rated run took 37.9 s eager
+        # against 5.9 s replayed on an H100, PERF.md section 5): the gates
+        # are unchanged, the min-ESS/s are the graphed samplers'.
+        graphed = torch.device(dev).type == "cuda"
         _sync(dev)
         t0 = time.perf_counter()
+        res = run(PT_SEED if name == "pt" else NUTS_SEED, warmup, draws, cuda_graph=graphed)
         if graphed:
-            res = run(NUTS_SEED, warmup, draws, cuda_graph=True)
             evals += res.extra["graph_replays"]
-        else:
-            res = run(PT_SEED if name == "pt" else NUTS_SEED, warmup, draws)
         _sync(dev)
         wall = time.perf_counter() - t0
         line = {"seed": PT_SEED if name == "pt" else NUTS_SEED, "warmup": warmup, "draws": draws,
@@ -3319,6 +3452,7 @@ def phase_tempering(dev="cuda", pt_lengths=PT_LENGTHS, nuts_lengths=NUTS_LENGTHS
     gen = torch.Generator(device=dev).manual_seed(PT_GATE_SEED)
     res = pft.samplers.pt_sample(_bimodal_logp, init, generator=gen, num_warmup=pt_lengths[0],
                                  num_samples=pt_lengths[1],
+                                 cuda_graph=torch.device(dev).type == "cuda",
                                  **{**PT_RUN, "num_chains": PT_RUN["num_chains"] * PT_GATE_RUNS})
     draws = res.samples["x"].detach().cpu()
     per_run = _chain_balance(draws).view(PT_GATE_RUNS, PT_RUN["num_chains"]).max(dim=1).values
@@ -3528,17 +3662,16 @@ def phase_model_check(dev="cuda", nuts=MODEL_CHECK_NUTS, data_kw=MODEL_CHECK_DAT
 
     The four fits are independent, and each is bound by its host thread
     (eager dispatch, ~100-180 launches per evaluation, the card idle most
-    of the time), so each runs in a process of its own (``spawn``), all
+    of the time), so each runs in a process of its own (forked from the fork server), all
     four at once on the one card, as a modeller would fit competing
     models; the ranking, the predictive and Laplace run here after."""
-    import multiprocessing as mp
 
     import numpy as np
 
     from pytensor_federated_torch import models as M
     from pytensor_federated_torch import samplers as S
 
-    ctx = mp.get_context("spawn")
+    ctx = _node_context()
     procs, conns = [], {}
     t0 = time.perf_counter()
     try:
@@ -3701,7 +3834,9 @@ SBC = dict(n_sims=32, num_warmup=100, num_samples=64, thin=2, max_depth=4)
 # Checkpointed NUTS on the flagship through the kernel.
 # Trees are capped at depth 3 (8 leaves): the phase checks resumption,
 # not mixing, and at depth 6 its four runs took ~10,000 evaluations.
-CHECKPOINT = dict(num_warmup=100, num_samples=100, num_chains=1, checkpoint_every=25,
+# 50 warmup + 75 draws, three chunks (100 + 100 before: the gates
+# are bits and chunk indices, which hold at any length).
+CHECKPOINT = dict(num_warmup=50, num_samples=75, num_chains=1, checkpoint_every=25,
                   max_depth=3)
 CHECKPOINT_CUT_AFTER = 2  # chunks persisted before the interruption
 # The demos: three gRPC nodes on the card, the remote driver's draws,
@@ -4270,7 +4405,6 @@ def phase_demos(dev="cuda", n_ports=DEMO_PORTS, remote_draws=DEMO_REMOTE_DRAWS,
     SIGTERM to its manager and every node process and port is gone
     within DEMO_TEARDOWN_S."""
     import functools
-    import multiprocessing as mp
 
     from pytensor_federated_torch.demos import demo_model, demo_node
     from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
@@ -4278,7 +4412,7 @@ def phase_demos(dev="cuda", n_ports=DEMO_PORTS, remote_draws=DEMO_REMOTE_DRAWS,
 
     _grpc.grpc.aio  # the demos need grpcio; a missing one fails the phase
     ports = _free_ports(n_ports)
-    ctx = mp.get_context("spawn")
+    ctx = _node_context()
     manager = ctx.Process(target=functools.partial(demo_node.run_node_pool, device=dev),
                           args=("127.0.0.1", ports), name="demo-pool")
     t0 = time.perf_counter()
@@ -4475,7 +4609,6 @@ def _opt_steps_gate(opt, store, accepted):
 
 def phase_optim(dev="cuda", n_obs=LARGE_PATH[1], steps=OPTIM_STEPS, kill_after=OPTIM_KILL_AFTER,
                 shared_steps=OPTIM_SHARED_STEPS):
-    import multiprocessing as mp
     import shutil
     import tempfile
 
@@ -4488,7 +4621,7 @@ def phase_optim(dev="cuda", n_obs=LARGE_PATH[1], steps=OPTIM_STEPS, kill_after=O
 
     planned = {"owner_evals": OPTIM_SHARDS * (steps + shared_steps), "control_evals": steps}
     roots = [tempfile.mkdtemp(prefix="chip-smoke-optim-") for _ in range(2)]
-    ctx = mp.get_context("spawn")
+    ctx = _node_context()
     procs, conns, pools, out = [], [], [], {"phase": "optim", "size": [8, n_obs],
                                             "planned": planned}
     try:
@@ -4826,10 +4959,410 @@ def phase_mesh(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], slots=MESH_SLOTS, nut
     return all(out["gates"].values()), out
 
 
+# Slice 12: the chains and sequence axes on the single-controller mesh.
+# A mesh of [cuda:0] * n shows the partition and the cross-slot work on
+# one card, not concurrency across cards.
+#
+# multichain: the flagship at 8 x 131,072 (the mesh phase's model) on a
+# {"chains": 2, "shards": 2} mesh, 2 chains x (100 warmup + 100 draws)
+# of NUTS with a dense mass, every evaluation replayed from a CUDA graph:
+# the plain per-shard path, as the JAX package's multichain_sample
+# evaluates the caller's function.  The chains start at the generating
+# parameters plus the default jitter (0.5 N(0, 1)), with trees up to
+# depth 8: on the card (PERF.md section 6) chains from the origin did
+# not all reach the posterior in 100 warmup transitions, and at the JAX
+# default depth 6 two chains from the generating point stayed apart on
+# the intercept/offsets ridge (split R-hat 7-9).  That ridge is set by
+# the offsets' prior alone (the data pin each shard's intercept +
+# offset to ~0.0014): in 100 draws a chain moves along it by a fraction
+# of its length, and split R-hat across the chains of the raw intercept
+# read 1.021 and 1.091 for two seeds.  So the R-hat gate reads what the
+# data identify: slope, log_sigma and each shard's intercept + offset;
+# the raw parameters' R-hat is recorded beside it.
+# Then short sharded runs held against the same runs unsharded: sample()
+# (4 chains over {"chains": 2}, through the kernel, graphed) and
+# chees_sample() (8 chains over {"chains": 2}, eager, through the kernel)
+# at 8 x 64, and pt_sample() on the tempering phase's bimodal, one stack's
+# 8 rungs over {"temps": 8}.
+MULTICHAIN_MESH = {"chains": 2, "shards": 2}
+MULTICHAIN_NUTS = (100, 100)  # warmup, draws per chain
+MULTICHAIN_MAX_DEPTH = 8
+MULTICHAIN_TIMED_EVALS = 10
+MULTICHAIN_RERUN = (3, 3)  # the rerun-bits check: warmup, draws, twice
+MULTICHAIN_SAMPLE = dict(num_chains=4, num_warmup=15, num_samples=15)
+MULTICHAIN_CHEES = dict(num_chains=8, num_warmup=6, num_samples=6, max_leapfrogs=16)
+MULTICHAIN_PT = dict(num_temps=8, num_warmup=25, num_samples=50, num_leapfrog=4, beta_min=0.01)
+# seq: config 6's model (LGSSM, T = 4,096) over {"seq": 4}, with no mask
+# and with ~30% of the steps missing (t = 1 among them); the AR(1) at
+# T = 4,096; ring attention at (T, d) = (4,096, 64), causal and not; the
+# all-pairs sum over 1,024 points in 3 dimensions.
+SEQ_SLOTS = 4
+SEQ_MISSING, SEQ_MASK_SEED = 0.3, 12
+SEQ_HORIZON = 16
+SEQ_DRAWS = 64  # simulation-smoother draws, one vmapped batch
+SEQ_TIMED_EVALS = 3
+SEQ_ATTENTION = (4096, 64)
+SEQ_PAIRS = (1024, 3)
+SEQ_FORECAST_RTOL, SEQ_FORECAST_ATOL = 1e-4, 1e-6  # tests/test_statespace.py
+# Draw means within SEQ_DRAW_Z standard errors of the smoothed means at
+# every step and coordinate (8,192 of them: P(|z| > 6) ~ 2e-9 each), and
+# the draws' variance over the smoothed variance, averaged over steps and
+# coordinates, within 1 +- SEQ_VAR_BAND.
+SEQ_DRAW_Z, SEQ_VAR_BAND = 6.0, 0.1
+# Attention and the all-pairs sum in float32 on the card against float64
+# on the CPU.
+SEQ_ATTENTION_ATOL, SEQ_PAIRS_RTOL = 1e-4, 1e-4
+# The AR(1) off its generating point (mu 0.5, phi 0.8, sigma 0.3), where
+# no gradient component cancels: value rtol 1e-5 (a float32 sum of 4,096
+# terms), gradient 1e-3 |g| + 1e-2 (the slots sum in another order).
+SEQ_AR1_POINT = {"mu": 0.0, "arctanh_phi": 0.5, "log_sigma": -0.5}
+SEQ_AR1_TOL = (1e-5, 1e-3, 1e-2)
+
+
+def _flat_against(v, g, v_ref, g_ref):
+    """A chain batch's values ``(C,)`` and flat gradients ``(C, d)``
+    against a reference, at the float64 gates' tolerances (value rtol
+    MODEL_VALUE_RTOL; gradient within MODEL_GRAD_RTOL |g| +
+    MODEL_GRAD_ATOL_OF_MAX max|g| of the chain)."""
+    v, g = v.detach().cpu().double(), g.detach().cpu().double()
+    v_ref, g_ref = v_ref.detach().cpu().double(), g_ref.detach().cpu().double()
+    rel = float(((v - v_ref).abs() / v_ref.abs()).max())
+    tol = MODEL_GRAD_RTOL * g_ref.abs() + MODEL_GRAD_ATOL_OF_MAX * g_ref.abs().max(
+        dim=-1, keepdim=True).values
+    worst = float(((g - g_ref).abs() / tol.clamp_min(1e-30)).max())
+    return rel <= MODEL_VALUE_RTOL and worst <= 1.0, {"value_rel_err": rel,
+                                                      "grad_err_over_tol": worst}
+
+
+def _bits_or_moments(a, b):
+    """Two runs' draws (params trees, leading (chains, draws)): equal bit
+    for bit, or, where the bits differ, every parameter's mean within 4
+    combined Monte Carlo standard errors."""
+    import pytensor_federated_torch as pft
+
+    bits = all(torch.equal(a[k], b[k]) for k in a)
+    if bits:
+        return True, {"bits_equal": True}
+    worst = 0.0
+    ess_a = pft.samplers.effective_sample_size(a)
+    ess_b = pft.samplers.effective_sample_size(b)
+    for k in a:
+        da, db = a[k].double(), b[k].double()
+        se = torch.sqrt(da.var(dim=(0, 1)) / ess_a[k] + db.var(dim=(0, 1)) / ess_b[k])
+        diff = (da.mean(dim=(0, 1)) - db.mean(dim=(0, 1))).abs()
+        worst = max(worst, float((diff / se.clamp_min(1e-30)).max()))
+    return worst <= 4.0, {"bits_equal": False, "max_mean_diff_over_combined_mcse": worst}
+
+
+def phase_multichain(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], nuts=MULTICHAIN_NUTS,
+                     rerun=MULTICHAIN_RERUN):
+    """Slice 12, the chains axis: multichain_sample on a 2-D mesh of the
+    card, and chain and temperature sharding in the samplers."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.parallel.mesh import NamedSharding
+    from pytensor_federated_torch.parallel.multichain import (
+        multichain_logp_and_grad,
+        multichain_sample,
+    )
+    from pytensor_federated_torch.samplers.chees import chees_sample
+    from pytensor_federated_torch.samplers.mcmc import (
+        make_batch_logp_and_grad,
+        make_flat_logp_and_grad,
+    )
+    from pytensor_federated_torch.samplers.tempering import pt_sample
+    from pytensor_federated_torch.samplers.util import ravel
+
+    cuda = torch.device(dev).type == "cuda"
+    card = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    slots = math.prod(MULTICHAIN_MESH.values())
+    mesh = pft.make_mesh(MULTICHAIN_MESH, devices=[card] * slots)
+    data, true_offsets = pft.generate_node_data(8, n_obs=n_obs, seed=123, device=card)
+    model = pft.FederatedLinearRegression(data)
+    model64 = pft.FederatedLinearRegression(_as_f64_cpu(data))
+    start = {"intercept": torch.tensor(TRUE["intercept"], device=card),
+             "slope": torch.tensor(TRUE["slope"], device=card),
+             "log_sigma": torch.tensor(math.log(TRUE["sigma"]), device=card),
+             "offsets": torch.as_tensor(true_offsets, dtype=torch.float32, device=card)}
+    flat0, unravel = ravel(model.init_params())
+    shard_fn, prior = model.fed.per_shard_logp, model.prior_logp
+    lg = multichain_logp_and_grad(shard_fn, model.fed.data, unravel, mesh=mesh, prior_logp=prior)
+    out = {"phase": "multichain", "size": [8, n_obs], "mesh": dict(mesh.shape),
+           "devices": [str(d) for d in mesh.devices.reshape(-1)],
+           "note": "a mesh of one card shows the partition and the cross-slot sum, "
+                   "not concurrency across cards"}
+
+    # Each chain's value and gradient on the mesh: against the unsharded
+    # model on the card and against float64 on the CPU.
+    points = _three_points(model.init_params())
+    X = torch.stack([ravel(points[k])[0] for k in ("perturbed", "normal")])
+    v, g = lg(X)
+    v0, g0 = zip(*(model.logp_and_grad(unravel(x)) for x in X))
+    v64, g64 = zip(*(model64.logp_and_grad(_as_f64_cpu(unravel(x))) for x in X))
+    ok_plain, against_plain = _flat_against(v, g, torch.stack(v0),
+                                            torch.stack([ravel(t)[0] for t in g0]))
+    ok64, against64 = _flat_against(v, g, torch.stack(v64),
+                                    torch.stack([ravel(t)[0] for t in g64]))
+    out["values"] = {"against_no_mesh": against_plain, "against_f64": against64}
+    out["ms_per_logp_and_grad"] = {
+        "mesh": _ms_per_eval(lambda: lg(X), dev, MULTICHAIN_TIMED_EVALS),
+        "no_mesh": _ms_per_eval(lambda: [model.logp_and_grad(unravel(x)) for x in X], dev,
+                                MULTICHAIN_TIMED_EVALS)}
+    out["cuda_launches_per_logp_and_grad"] = {
+        "mesh": _launches(lambda: lg(X), dev, 3),
+        "no_mesh": _launches(lambda: [model.logp_and_grad(unravel(x)) for x in X], dev, 3)}
+
+    def run(seed, warmup, draws):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        return multichain_sample(shard_fn, model.fed.data, start, mesh=mesh, generator=gen,
+                                 num_warmup=warmup, num_samples=draws, dense_mass=True,
+                                 prior_logp=prior, max_depth=MULTICHAIN_MAX_DEPTH,
+                                 cuda_graph=cuda)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    draws, accept, _ = run(21, *nuts)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    replays = multichain_sample.graph_replays
+    samples = unravel(draws)
+    derived = {"intercept": samples["intercept"], "slope": samples["slope"],
+               "sigma": torch.exp(samples["log_sigma"])}
+    identified = {"slope": samples["slope"], "log_sigma": samples["log_sigma"],
+                  "shard_intercepts": samples["intercept"][..., None] + samples["offsets"]}
+    rhat = max(float(r.max()) for r in pft.samplers.split_rhat(identified).values())
+    raw_rhat = {k: float(r.max()) for k, r in pft.samplers.split_rhat(samples).items()}
+    ess = pft.samplers.effective_sample_size(derived)
+    ref = nuts_line.get("recovered", {})
+    moments, moments_ok = {}, bool(ref)
+    for k, d in derived.items():
+        mean, sd = float(d.double().mean()), float(d.double().std())
+        mcse = sd / float(ess[k]) ** 0.5
+        r = ref.get(k, {})
+        combined = math.sqrt(mcse**2 + r.get("mcse", float("inf")) ** 2)
+        within = abs(mean - r.get("mean", float("inf"))) <= 4 * combined
+        moments[k] = {"mean": mean, "sd": sd, "ess": float(ess[k]), "mcse": mcse,
+                      "nuts_large_mean": r.get("mean"), "nuts_large_mcse": r.get("mcse"),
+                      "within_4_combined_mcse": within}
+        moments_ok &= within
+    finite = bool(torch.isfinite(draws).all())
+    rerun_bits = torch.equal(run(5, *rerun)[0], run(5, *rerun)[0])
+    out["nuts"] = {"chains": MULTICHAIN_MESH["chains"], "warmup": nuts[0], "draws": nuts[1],
+                   "dense_mass": True, "max_depth": MULTICHAIN_MAX_DEPTH,
+                   "start": "generating parameters + 0.5 N(0, 1)", "cuda_graph": cuda,
+                   "wall_s": wall, "graph_replays": replays,
+                   "ms_per_grad_eval": wall * 1e3 / max(replays, 1),
+                   "accept_prob": float(accept.mean()),
+                   "max_split_rhat_identified": rhat, "split_rhat_raw": raw_rhat,
+                   "moments": moments, "finite": finite,
+                   "rerun": {"warmup": rerun[0], "draws": rerun[1], "bits_equal": rerun_bits}}
+
+    # Chain and temperature sharding against the same runs unsharded.
+    # The sample and chees runs go through the kernel; the launches of
+    # the graphed sample runs are the profiler's count per replay times
+    # the replays (see phase_nuts), those of the eager chees runs the
+    # wrapper's count.
+    sharding = NamedSharding(pft.make_mesh({"chains": 2}, devices=[card] * 2), "chains")
+    _, fmodel, _, posterior = _flagship(FLAGSHIP[1], dev)
+    flat_logp, fflat0, funravel, _ = make_flat_logp_and_grad(posterior, fmodel.init_params())
+    batch_lg = make_batch_logp_and_grad(flat_logp, funravel)
+    chains = MULTICHAIN_SAMPLE["num_chains"]
+    graphs = {"unsharded": _graph_check(batch_lg, fflat0, chains, dev, 31, timed=5),
+              "sharded": _graph_check(sharding.map_blocks(batch_lg), fflat0, chains, dev, 31,
+                                      timed=5)}
+    sharded_runs, launches = {}, 0
+    for name, sh in (("unsharded", None), ("sharded", sharding)):
+        linreg_reductions.launches = 0
+        gen = torch.Generator(device=card).manual_seed(13)
+        t0 = time.perf_counter()
+        res = pft.samplers.sample(posterior, fmodel.init_params(), generator=gen,
+                                  cuda_graph=cuda, chain_sharding=sh, **MULTICHAIN_SAMPLE)
+        _sync(dev)
+        replays = res.extra["graph_replays"] if cuda else 0
+        n = (_graphed_launches(graphs[name], linreg_reductions.launches, replays) if cuda
+             else linreg_reductions.launches)
+        launches += n
+        sharded_runs[name] = res.samples
+        graphs[name].update(wall_s=time.perf_counter() - t0, graph_replays=replays,
+                            kernel_launches=n)
+    ok_sample, sample_cmp = _bits_or_moments(sharded_runs["unsharded"], sharded_runs["sharded"])
+    expected_per_replay = {"unsharded": 1, "sharded": 2}  # one launch per block of chains
+    graph_ok = (not cuda) or all(
+        graphs[k]["kernel_launches_per_replay"] == expected_per_replay[k]
+        and graphs[k]["replay_bits_equal_eager"] for k in graphs)
+    chees_runs = {}
+    for name, sh in (("unsharded", None), ("sharded", sharding)):
+        linreg_reductions.launches = 0
+        gen = torch.Generator(device=card).manual_seed(17)
+        chees_runs[name] = chees_sample(posterior, fmodel.init_params(), generator=gen,
+                                        chain_sharding=sh, **MULTICHAIN_CHEES).samples
+        launches += linreg_reductions.launches
+    ok_chees, chees_cmp = _bits_or_moments(chees_runs["unsharded"], chees_runs["sharded"])
+    temps = NamedSharding(pft.make_mesh({"temps": MULTICHAIN_PT["num_temps"]},
+                                        devices=[card] * MULTICHAIN_PT["num_temps"]), "temps")
+    init = {"x": torch.zeros(BIMODAL["dim"], device=card)}
+    pt_runs = {name: pt_sample(_bimodal_logp, init, generator=torch.Generator(
+        device=card).manual_seed(19), temp_sharding=sh, **MULTICHAIN_PT).samples
+        for name, sh in (("unsharded", None), ("sharded", temps))}
+    ok_pt, pt_cmp = _bits_or_moments(pt_runs["unsharded"], pt_runs["sharded"])
+    out["sharding"] = {
+        "sample": {"size": list(FLAGSHIP), **MULTICHAIN_SAMPLE, "mesh": {"chains": 2},
+                   "graphs": graphs, **sample_cmp},
+        "chees": {"size": list(FLAGSHIP), **MULTICHAIN_CHEES, "mesh": {"chains": 2},
+                  **chees_cmp},
+        "pt": {"target": BIMODAL, **MULTICHAIN_PT, "mesh": {"temps": MULTICHAIN_PT["num_temps"]},
+               **pt_cmp},
+    }
+    out["kernel_launches"] = launches
+    out["gates"] = {"values": ok_plain and ok64, "rhat": rhat < 1.05,
+                    "moments": moments_ok and finite, "rerun_bits": rerun_bits,
+                    "graph_replays": (not cuda) or out["nuts"]["graph_replays"] > 0,
+                    "sample_sharding": ok_sample and graph_ok, "chees_sharding": ok_chees,
+                    "pt_sharding": ok_pt}
+    return all(out["gates"].values()), out
+
+
+def phase_seq(dev="cuda", lgssm=LGSSM, slots=SEQ_SLOTS, draws=SEQ_DRAWS,
+              attention=SEQ_ATTENTION, pairs=SEQ_PAIRS):
+    """Slice 12, the sequence axis: SeqShardedLGSSM, SeqShardedAR1 and the
+    ring collectives over a {"seq": 4} mesh of the card."""
+    import numpy as np
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.models import statespace as ss
+    from pytensor_federated_torch.models.timeseries import SeqShardedAR1, generate_ar1_data
+    from pytensor_federated_torch.parallel import ring
+    from pytensor_federated_torch.utils import value_and_grad
+
+    cuda = torch.device(dev).type == "cuda"
+    card = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    mesh = pft.make_mesh({"seq": slots}, devices=[card] * slots)
+    y, params = pft.generate_lgssm_data(**lgssm, device=card)
+    T = y.shape[0]
+    mask = (np.random.default_rng(SEQ_MASK_SEED).uniform(size=T) >= SEQ_MISSING).astype(
+        np.float32)
+    mask[0] = 0.0  # t = 1 masked: the first slot's prior element, unconditioned
+    y64, p64 = y.cpu().double(), {k: v.cpu().double() for k, v in params.items()}
+    tol = (LGSSM_VALUE_RTOL, LGSSM_GRAD_RTOL, LGSSM_GRAD_ATOL)
+    out = {"phase": "seq", "size": lgssm, "mesh": dict(mesh.shape),
+           "devices": [str(d) for d in mesh.devices.reshape(-1)],
+           "missing_share": float(1.0 - mask.mean()),
+           "note": "a mesh of one card shows the partition and the cross-slot work, "
+                   "not concurrency across cards"}
+    gates, cases = {}, {}
+    for name, m in (("no_mask", None), ("mask", mask)):
+        mt = None if m is None else torch.as_tensor(m, device=card)
+        m64 = None if m is None else torch.as_tensor(m, dtype=torch.float64)
+        model = ss.SeqShardedLGSSM(y, mesh, mask=m)
+        vg = model.logp_and_grad(params)
+        vg_card = value_and_grad(lambda q: ss.kalman_logp_parallel(q, y, mt), params)
+        vg64 = value_and_grad(lambda q: ss.kalman_logp_parallel(q, y64, m64), p64)
+        c = {"logp": float(vg[0]), "logp_f64": float(vg64[0])}
+        ok_card, c["logp_grad_vs_card"] = _flat_close(vg, vg_card, *tol)
+        ok64, c["logp_grad_vs_f64"] = _flat_close(vg, vg64, *tol)
+        sm = model.smoothed_moments(params)
+        sm_card = ss.kalman_smoother_parallel(params, y, mt)
+        sm64 = ss.kalman_smoother_parallel(p64, y64, m64)
+        sm_ok, c["smoothed_err_over_tol"] = True, {}
+        for label, ref in (("card", sm_card), ("f64", sm64)):
+            oks, ratios = zip(*(_close(a, b, LGSSM_GRAD_RTOL, LGSSM_GRAD_ATOL)
+                                for a, b in zip(sm, ref)))
+            sm_ok &= all(oks)
+            c["smoothed_err_over_tol"][label] = {"means": ratios[0], "covs": ratios[1]}
+        fc = model.forecast(params, SEQ_HORIZON)
+        fc_ok, c["forecast_err_over_tol"] = True, {}
+        for label, ref in (("card", ss.kalman_forecast(params, y, SEQ_HORIZON, mt)),
+                           ("f64", ss.kalman_forecast(p64, y64, SEQ_HORIZON, m64))):
+            oks, ratios = zip(*(_close(a, b, SEQ_FORECAST_RTOL, SEQ_FORECAST_ATOL)
+                                for a, b in zip(fc, ref)))
+            fc_ok &= all(oks)
+            c["forecast_err_over_tol"][label] = {"means": ratios[0], "covs": ratios[1]}
+        gates[name] = ok_card and ok64 and sm_ok and fc_ok
+        cases[name] = (model, c, sm)
+    # Time and launches per logp+grad, with the mask (the same work as
+    # without it), with and without the mesh.
+    model = cases["mask"][0]
+    mt = torch.as_tensor(mask, device=card)
+    plain = lambda: value_and_grad(lambda q: ss.kalman_logp_parallel(q, y, mt), params)
+    out["ms_per_logp_and_grad"] = {
+        "mesh": _ms_per_eval(lambda: model.logp_and_grad(params), dev, SEQ_TIMED_EVALS),
+        "no_mesh": _ms_per_eval(plain, dev, SEQ_TIMED_EVALS)}
+    out["cuda_launches_per_logp_and_grad"] = {
+        "mesh": _launches(lambda: model.logp_and_grad(params), dev, 1),
+        "no_mesh": _launches(plain, dev, 1)}
+    # The simulation smoother's draws against the smoothed moments.
+    model, c, (sm_mean, sm_cov) = cases["mask"]
+    t0 = time.perf_counter()
+    zs = model.sample_latents(params, torch.Generator(device=card).manual_seed(3), draws)
+    _sync(dev)
+    zs, sm_mean, sm_cov = zs.cpu().double(), sm_mean.cpu().double(), sm_cov.cpu().double()
+    sd = torch.sqrt(torch.diagonal(sm_cov, dim1=-2, dim2=-1))
+    z = float(((zs.mean(0) - sm_mean).abs() / (sd / math.sqrt(draws))).max())
+    var_ratio = float((zs.var(0) / sd**2).mean())
+    c["sample_latents"] = {"draws": draws, "seconds": time.perf_counter() - t0,
+                           "max_mean_z": z, "mean_var_ratio": var_ratio}
+    gates["sample_latents"] = (z <= SEQ_DRAW_Z and abs(var_ratio - 1.0) <= SEQ_VAR_BAND
+                               and bool(torch.isfinite(zs).all()))
+    out["lgssm"] = {name: cases[name][1] for name in cases}
+
+    # The AR(1) at T = 4,096, with the mesh against without it on the
+    # card and against float64 on the CPU.
+    y_ar = generate_ar1_data(T, seed=7)
+    ar_mesh, ar_plain = SeqShardedAR1(y_ar, mesh=mesh), SeqShardedAR1(y_ar, device=card)
+    ar64 = SeqShardedAR1(y_ar.astype(np.float64), device="cpu")
+    p_ar = {k: torch.tensor(v, device=card) for k, v in
+            SEQ_AR1_POINT.items()}
+    vg_ar = ar_mesh.logp_and_grad(p_ar)
+    ok_ar, ar_card = _flat_close(vg_ar, ar_plain.logp_and_grad(p_ar), *SEQ_AR1_TOL)
+    ok_ar64, ar_f64 = _flat_close(vg_ar, ar64.logp_and_grad(_as_f64_cpu(p_ar)), *SEQ_AR1_TOL)
+    out["ar1"] = {"T": T, "logp": float(vg_ar[0]), "vs_no_mesh": ar_card, "vs_f64": ar_f64,
+                  "ms_per_logp_and_grad": {
+                      "mesh": _ms_per_eval(lambda: ar_mesh.logp_and_grad(p_ar), dev,
+                                           SEQ_TIMED_EVALS),
+                      "no_mesh": _ms_per_eval(lambda: ar_plain.logp_and_grad(p_ar), dev,
+                                              SEQ_TIMED_EVALS)}}
+    gates["ar1"] = ok_ar and ok_ar64
+
+    # Ring attention and the all-pairs sum against dense float64 on the CPU.
+    g = torch.Generator(device=card).manual_seed(8)
+    q, k, v = (torch.randn(attention, generator=g, device=card) for _ in range(3))
+    q64, k64, v64 = (t.cpu().double() for t in (q, k, v))
+    att = {}
+    for causal in (False, True):
+        t0 = time.perf_counter()
+        o = ring.ring_attention(q, k, v, mesh=mesh, causal=causal)
+        _sync(dev)
+        s = (q64 @ k64.T) / math.sqrt(attention[1])
+        if causal:
+            s = s.masked_fill(~torch.tril(torch.ones(s.shape, dtype=torch.bool)), -torch.inf)
+        ref = torch.softmax(s, dim=-1) @ v64
+        err = float((o.cpu().double() - ref).abs().max())
+        att["causal" if causal else "full"] = {"max_abs_err": err, "seconds":
+                                               time.perf_counter() - t0}
+    out["ring_attention"] = {"shape": list(attention), "atol": SEQ_ATTENTION_ATOL, **att}
+    gates["ring_attention"] = all(a["max_abs_err"] <= SEQ_ATTENTION_ATOL for a in att.values())
+    x = torch.randn(pairs, generator=g, device=card)
+    pair = lambda a, b: torch.sum(torch.exp(-torch.sum((a[:, None] - b[None]) ** 2, dim=-1)))
+    x64 = x.cpu().double()
+    pair_out = {}
+    for include_self in (True, False):
+        got = float(ring.ring_all_pairs_sum(pair, x, mesh=mesh, include_self=include_self))
+        want = pair(x64, x64)
+        if not include_self:
+            want = want - sum(pair(b, b) for b in x64.split(pairs[0] // slots))
+        pair_out["with_self" if include_self else "without_self"] = {
+            "value": got, "f64": float(want), "rel_err": abs(got - float(want)) / float(want)}
+    out["ring_all_pairs_sum"] = {"shape": list(pairs), "rtol": SEQ_PAIRS_RTOL, **pair_out}
+    gates["ring_all_pairs_sum"] = all(p["rel_err"] <= SEQ_PAIRS_RTOL for p in pair_out.values())
+    out["gates"] = gates
+    return all(gates.values()), out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
-                                           "slice7", "slice8", "slice9", "slice10", "slice11"],
+                                           "slice7", "slice8", "slice9", "slice10", "slice11",
+                                           "slice12"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
@@ -4839,7 +5372,8 @@ def main() -> int:
                              "and pool only; slice9: device, build and gateway only; "
                              "slice10: device, build, nuts, vi, particles, sgld, sbc, "
                              "checkpoint and demos only; slice11: device, build, nuts_large, "
-                             "optim and mesh only")
+                             "optim and mesh only; slice12: device, build, nuts_large, "
+                             "multichain and seq only")
     args = parser.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4906,6 +5440,8 @@ def main() -> int:
         ("demos", phase_demos),
         ("optim", phase_optim),
         ("mesh", lambda: phase_mesh(lines.get("nuts_large", {}))),
+        ("multichain", lambda: phase_multichain(lines.get("nuts_large", {}))),
+        ("seq", phase_seq),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -4928,6 +5464,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("nuts",) + SLICE10]
     elif args.only == "slice11":
         phases = [ph for ph in phases if ph[0] in ("nuts_large", "optim", "mesh")]
+    elif args.only == "slice12":
+        phases = [ph for ph in phases if ph[0] in ("nuts_large", "multichain", "seq")]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -4984,9 +5522,12 @@ def main() -> int:
         # the slice-10 phases, over their fits and runs, the checks
         # against float64 excluded; in the optim phase, by the owner
         # nodes over both sharded runs, the driver-centric control
-        # excluded).
+        # excluded; in the nuts, nuts_large and multichain phases, whose
+        # NUTS runs replay a CUDA graph, the profiler's launches per
+        # replay times the replays plus the graph's eager warm-up calls).
         "launches": sum(lines[p].get("kernel_launches", 0)
-                        for p in ("nuts", "nuts_large", "pool", "gateway", "optim") + SLICE10)
+                        for p in ("nuts", "nuts_large", "pool", "gateway", "optim", "multichain")
+                        + SLICE10)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

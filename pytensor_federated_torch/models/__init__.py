@@ -1,8 +1,9 @@
 """Models: the flagship federated linear regression, BASELINE.json's
 radon GLM, Lotka-Volterra ODE and federated logistic regressions, the
 other GLM families (count, robust, Gamma, ordinal, softmax, survival),
-the Gaussian mixture, the Gaussian processes and the linear-Gaussian
-state-space models."""
+the Gaussian mixture, the Gaussian processes, the linear-Gaussian
+state-space models and the sequence-sharded AR(1) and state-space
+models."""
 
 from .countdata import (
     FederatedNegBinGLM,
@@ -50,6 +51,7 @@ from .ordinal import (
 from .robust import FederatedRobustRegression, generate_robust_data, student_t_logpdf
 from .statespace import (
     FederatedLGSSMPanel,
+    SeqShardedLGSSM,
     ekf_logp,
     generate_lgssm_data,
     kalman_forecast,
@@ -67,3 +69,4 @@ from .survival import (
     generate_survival_data,
     weibull_censored_loglik,
 )
+from .timeseries import SeqShardedAR1, generate_ar1_data

@@ -23,8 +23,12 @@ Evaluation paths, exact and equal to one another:
 
 Every factorization and solve uses :func:`..utils.cholesky_or_nan` /
 :func:`..utils.solve_or_nan`: no host sync, and NaN (as in JAX) where a
-matrix is not positive definite or is singular.  The time axis sharded
-over GPUs (the JAX package's ``SeqShardedLGSSM``) is not ported yet.
+matrix is not positive definite or is singular.
+
+:class:`SeqShardedLGSSM` cuts the time axis over a mesh axis: each slot
+scans its own segment, and the segments' summaries are composed into
+each slot's exclusive prefix (and, for the smoother, suffix) in time
+order, once per slot (:func:`_exclusive_segment_fold`).
 """
 
 from __future__ import annotations
@@ -38,10 +42,12 @@ import torch
 
 from .._assoc_scan import associative_scan
 from ..precision import matmul_precision_ctx
-from ..utils import cholesky_or_nan, resolve_device, solve_or_nan
+from ..parallel.mesh import SEQ_AXIS, Mesh
+from ..utils import cholesky_or_nan, resolve_device, solve_or_nan, tree_map, value_and_grad
 
 __all__ = [
     "FederatedLGSSMPanel",
+    "SeqShardedLGSSM",
     "default_lgssm_params",
     "ekf_logp",
     "generate_lgssm_data",
@@ -632,12 +638,20 @@ class FederatedLGSSMPanel:
     (optional, ``(n_series, T)``): 1 = observed — ragged panels (pad
     shorter series and mask the padding) and irregular sampling.  A
     ``ys`` given as a tensor keeps its device; one given as an array
-    lands on ``device`` (``cuda`` unless the caller says otherwise).
+    lands on ``device`` (``cuda`` unless the caller says otherwise; with
+    a mesh, the first slot's device).
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`) cuts the series over its
+    ``axis``, each slot evaluating its block of series on its device
+    (:class:`..parallel.sharded.FederatedLogp`'s mesh); ``n_series``
+    must divide evenly.
     """
 
     ys: Any
     masks: Any = None
     device: Any = None
+    mesh: Any = None
+    axis: str = "shards"
 
     def __post_init__(self):
         from ..parallel.sharded import FederatedLogp
@@ -645,7 +659,10 @@ class FederatedLGSSMPanel:
         if torch.is_tensor(self.ys):
             ys = self.ys
         else:
-            ys = torch.as_tensor(np.asarray(self.ys), device=resolve_device(self.device))
+            device = self.device
+            if device is None and self.mesh is not None and self.axis in self.mesh.axis_names:
+                device = self.mesh.slot_devices(self.axis)[0]
+            ys = torch.as_tensor(np.asarray(self.ys), device=resolve_device(device))
         if ys.ndim not in (2, 3):
             raise ValueError(
                 f"expected ys of shape (n_series, T) or (n_series, T, k), got {tuple(ys.shape)}"
@@ -667,7 +684,9 @@ class FederatedLGSSMPanel:
             y_shard, mask_shard = shard
             return kalman_logp_parallel(params, y_shard, mask_shard)
 
-        self.fed = FederatedLogp(per_shard_logp, (self.ys, self.masks))
+        self.fed = FederatedLogp(
+            per_shard_logp, (self.ys, self.masks), mesh=self.mesh, axis=self.axis
+        )
 
     def logp(self, params: Any) -> torch.Tensor:
         return self.fed.logp(params)
@@ -741,3 +760,283 @@ def sample_latents(params: Any, y: torch.Tensor, generator: torch.Generator,
         sm_star, _ = kalman_smoother_parallel(params, y_star, mask)
         draws.append(sm_y + z_star - sm_star)
     return torch.stack(draws)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-sharded filter, smoother and simulation smoother
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class SeqShardedLGSSM:
+    """LGSSM likelihood with the time axis cut over ``axis`` of ``mesh``.
+
+    Slot ``i`` holds the contiguous segment ``y[i*Tb:(i+1)*Tb]`` on its
+    device and associative-scans its filtering elements there; each
+    segment's summary (the fold of the segment, one ``(A, b, C, J, eta)``
+    element of O(d²) numbers) goes to the later slots, each slot composes
+    the exclusive prefix of the segments before it, and folds it into its
+    local scan.  The JAX package all-gathers the summaries and every
+    device folds all of them under ``where`` predicates; here each
+    slot's prefix is composed once, in time order.
+
+    ``y`` (``(T,)`` or ``(T, k)``, numpy or a tensor) and ``mask``
+    (``(T,)``, 1 = observed) land on the first slot's device; ``T`` must
+    divide over the axis.  Differentiable end to end; results come back
+    on the first slot's device, in time order.
+    """
+
+    y: Any
+    mesh: Mesh
+    axis: str = SEQ_AXIS
+    mask: Any = None
+
+    def __post_init__(self):
+        if self.axis not in self.mesh.axis_names:
+            raise ValueError(f"mesh has no axis {self.axis!r}: {self.mesh.axis_names}")
+        self._devices = self.mesh.slot_devices(self.axis)
+        n = len(self._devices)
+        home = self._devices[0]
+        y = self.y if torch.is_tensor(self.y) else torch.as_tensor(np.asarray(self.y))
+        y = y.to(home)
+        if y.ndim == 1:
+            y = y[:, None]
+        if y.shape[0] % n != 0:
+            raise ValueError(f"sequence length {y.shape[0]} not divisible by {n}")
+        self.y = y
+        self.mask = _as_mask(self.mask, y.shape[0], y.dtype, home).to(home)
+        self._y_blocks = _cut(y, self._devices)
+        self._mask_blocks = _cut(self.mask, self._devices)
+
+    def logp(self, params: Any) -> torch.Tensor:
+        return _sharded_lgssm_logp(params, self._y_blocks, self._mask_blocks, self._devices)
+
+    def logp_and_grad(self, params: Any):
+        return _sharded_lgssm_vg(params, self._y_blocks, self._mask_blocks, self._devices)
+
+    def smoothed_moments(self, params: Any):
+        """Smoothed marginals ``(means, covs)``, ``(T, d)`` and ``(T, d,
+        d)``: the reverse mirror of the filter's segment prefixes (see
+        :func:`_sharded_lgssm_smoother`)."""
+        sm, sP = _sharded_lgssm_smoother(params, self._y_blocks, self._mask_blocks,
+                                         self._devices)
+        return _join(sm, self._devices[0]), _join(sP, self._devices[0])
+
+    def sample_latents(self, params: Any, generator: Optional[torch.Generator] = None,
+                       num_draws: int = 1, *, noise=None) -> torch.Tensor:
+        """Durbin-Koopman simulation smoother over the slots: joint
+        posterior draws of ``z_{1:T} | y``, ``(num_draws, T, d)``.  The
+        unconditional simulation is an affine prefix scan over the slots
+        (the same exclusive segment fold as the filter); each draw costs
+        two sharded smoother passes, every draw at once (``vmap``).
+        ``noise`` ``(z0 (D, d), w (D, T, d), v (D, T, k))`` replaces the
+        draws from ``generator`` (:func:`_draw_noise`, draw by draw, as
+        :func:`sample_latents` takes them)."""
+        return _sharded_lgssm_sampler(params, self._y_blocks, self._mask_blocks,
+                                      self._devices, generator, num_draws, noise)
+
+    def forecast(self, params: Any, horizon: int):
+        """h-step-ahead predictive observation moments from the sharded
+        filter: only the terminal filtered state crosses to the first
+        slot, then the affine-moment horizon scan runs there.  Equals
+        :func:`kalman_forecast`."""
+        m_T, P_T = _sharded_lgssm_terminal_filtered(params, self._y_blocks, self._mask_blocks,
+                                                    self._devices)
+        F, H, Q, R, _, _ = _unpack(_to(params, self._devices[0]))
+        return _forecast_from_terminal(F, H, Q, R, m_T, P_T, horizon)
+
+    def init_params(self, d: int = 2) -> Any:
+        return default_lgssm_params(d, self.y.shape[-1], device=self._devices[0])
+
+
+def _to(tree: Any, device: torch.device) -> Any:
+    return tree_map(lambda a: a.to(device), tree)
+
+
+def _cut(x: torch.Tensor, devices) -> list:
+    """Slot ``i``'s contiguous block of ``x``'s leading (time) axis, on
+    its device."""
+    per = x.shape[0] // len(devices)
+    return [x[i * per:(i + 1) * per].to(d) for i, d in enumerate(devices)]
+
+
+def _join(blocks, home: torch.device) -> torch.Tensor:
+    return torch.cat([b.to(home) for b in blocks], dim=0)
+
+
+def _broadcast_rows(elem, n: int):
+    return tuple(a.expand((n,) + a.shape) for a in elem)
+
+
+def _exclusive_segment_fold(summaries, combine, identities, *, suffix):
+    """Each slot's exclusive composition of the other segments' summaries:
+    of the segments strictly BEFORE it (``suffix=False``) or strictly
+    AFTER it (``suffix=True``).  ``combine(earlier, later)`` composes in
+    time order either way, starting from the slot's ``identities`` entry
+    (the identity element on its device), with the accumulated element
+    as the earlier operand, as the JAX package's fold does; each slot's
+    result is composed on its own device.  Shared by the filter, the
+    simulation and the smoother."""
+    n = len(summaries)
+    out = []
+    for idx, acc in enumerate(identities):
+        device = acc[0].device
+        others = range(idx + 1, n) if suffix else range(idx)
+        for r in others:
+            acc = combine(acc, tuple(a.to(device) for a in summaries[r]))
+        out.append(acc)
+    return out
+
+
+def _local_filtered(F, H, Q, R, m0, P0, y_local, mask_local, first: bool):
+    """A slot's associative scan of its segment's filtering elements.
+    Generic elements everywhere; the prior-conditioned element only
+    exists at global t = 1, row 0 of the first slot (``first``), which
+    takes it whether or not that step is observed."""
+    elems = _generic_elements(F, H, Q, R, y_local, mask_local)
+    if first:
+        prior = _prior_element(F, H, Q, R, m0, P0, y_local[0], mask_local[0])
+        elems = tuple(torch.cat([p[None], g[1:]], dim=0) for g, p in zip(elems, prior))
+    return associative_scan(_combine, elems)
+
+
+def _filter_identity(F):
+    d = F.shape[0]
+    kw = dict(dtype=F.dtype, device=F.device)
+    zeros = torch.zeros((d, d), **kw)
+    return (torch.eye(d, **kw), torch.zeros((d,), **kw), zeros, zeros, torch.zeros((d,), **kw))
+
+
+def _local_filter_prologue(params, y_blocks, mask_blocks, devices):
+    """The first act of every sharded-LGSSM evaluation: each slot
+    unpacks the parameters on its device, sanitizes its segment and
+    scans it; the exclusive prefixes of the segments' summaries are
+    composed; each slot folds its prefix into its local scan.  Returns,
+    per slot, ``(unpacked, y_local, means, covs, prefix)`` (the prefix
+    is the identity element on the first slot)."""
+    unpacked, ys, scans = [], [], []
+    for i, (d, y_local, mask_local) in enumerate(zip(devices, y_blocks, mask_blocks)):
+        up = _unpack(_to(params, d))
+        F, H, Q, R, m0, P0 = up
+        y_local = _sanitize(y_local, mask_local)
+        unpacked.append(up)
+        ys.append(y_local)
+        scans.append(_local_filtered(F, H, Q, R, m0, P0, y_local, mask_local, i == 0))
+    summaries = [tuple(a[-1] for a in s) for s in scans]
+    prefixes = _exclusive_segment_fold(summaries, _combine,
+                                       [_filter_identity(up[0]) for up in unpacked],
+                                       suffix=False)
+    out = []
+    for up, y_local, scan, prefix in zip(unpacked, ys, scans, prefixes):
+        _, means, covs, _, _ = _combine(_broadcast_rows(prefix, y_local.shape[0]), scan)
+        out.append((up, y_local, means, covs, prefix))
+    return out
+
+
+def _sharded_lgssm_logp(params, y_blocks, mask_blocks, devices):
+    """Σ_t log p(y_t | y_{1:t-1}) over the slots: the predictive terms of
+    a segment need the filtered state at t - 1, which for its row 0 is
+    its prefix (the previous segment's last filtered state; the prior
+    m0, P0 on the first slot).  The slots' sums are added on the first
+    slot's device, in slot order."""
+    parts = []
+    for i, ((F, H, Q, R, m0, P0), y_local, means, covs, prefix) in enumerate(
+            _local_filter_prologue(params, y_blocks, mask_blocks, devices)):
+        first_m, first_P = (m0, P0) if i == 0 else (prefix[1], prefix[2])
+        prev_m = torch.cat([first_m[None], means[:-1]], dim=0)
+        prev_P = torch.cat([first_P[None], covs[:-1]], dim=0)
+        lp = _predictive_one(F, H, Q, R, y_local, prev_m, prev_P)
+        parts.append(torch.sum(mask_blocks[i] * lp))
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(total.device)
+    return total
+
+
+def _sharded_lgssm_vg(params, y_blocks, mask_blocks, devices):
+    """(logp, grad) of the sharded filter, one forward and one backward."""
+    return value_and_grad(lambda p: _sharded_lgssm_logp(p, y_blocks, mask_blocks, devices),
+                          params)
+
+
+def _sharded_lgssm_terminal_filtered(params, y_blocks, mask_blocks, devices):
+    """Terminal filtered moments ``(m_T, P_T)``: the last slot's last
+    row, on the first slot's device — the only state a forecast needs."""
+    *_, (_, _, means, covs, _) = _local_filter_prologue(params, y_blocks, mask_blocks, devices)
+    return means[-1].to(devices[0]), covs[-1].to(devices[0])
+
+
+def _sharded_lgssm_simulate(F, z0, w_blocks, devices):
+    """The latent affine recurrence ``z_t = F z_{t-1} + w_t`` over the
+    slots: a local affine scan per slot (the first slot's row 0 carries
+    ``F z0``) and the exclusive segment prefix fold.  ``F`` and ``z0``
+    lie on the first slot's device; returns each slot's ``z`` block."""
+    d = F.shape[0]
+    scans, Fs = [], []
+    for i, (dev, w_local) in enumerate(zip(devices, w_blocks)):
+        Fd = F.to(dev)
+        b = torch.cat([(w_local[0] + Fd @ z0.to(dev))[None], w_local[1:]]) if i == 0 else w_local
+        scans.append(associative_scan(_affine_combine, (Fd.expand(w_local.shape[0], d, d), b)))
+        Fs.append(Fd)
+    summaries = [tuple(a[-1] for a in s) for s in scans]
+    identities = [(torch.eye(d, dtype=Fd.dtype, device=Fd.device),
+                   torch.zeros((d,), dtype=Fd.dtype, device=Fd.device)) for Fd in Fs]
+    prefixes = _exclusive_segment_fold(summaries, _affine_combine, identities, suffix=False)
+    return [_affine_combine(_broadcast_rows(prefix, w_local.shape[0]), scan)[1]
+            for prefix, scan, w_local in zip(prefixes, scans, w_blocks)]
+
+
+def _sharded_lgssm_smoother(params, y_blocks, mask_blocks, devices):
+    """Sharded RTS smoother: the reverse mirror of the filter's segment
+    prefixes.  Each slot builds backward-kernel elements from its
+    filtered moments (the terminal element ``(0, m_T, P_T)`` on the last
+    slot's last row), reverse-scans its segment, and folds in the
+    exclusive suffix of the segments after it.  Returns each slot's
+    ``(means, covs)`` blocks."""
+    prologue = _local_filter_prologue(params, y_blocks, mask_blocks, devices)
+    n = len(devices)
+    scans, identities = [], []
+    for i, ((F, H, Q, R, m0, P0), _, means, covs, _) in enumerate(prologue):
+        E, g, L = _smooth_elements(F, Q, means, covs, terminal=(i == n - 1))
+        # Local suffix scan: row t holds elems[t] ∘ ... ∘ elems[last].
+        scans.append(associative_scan(lambda a, b: _smooth_combine(b, a), (E, g, L),
+                                      reverse=True))
+        d = F.shape[0]
+        identities.append((torch.eye(d, dtype=F.dtype, device=F.device),
+                           torch.zeros((d,), dtype=F.dtype, device=F.device),
+                           torch.zeros((d, d), dtype=F.dtype, device=F.device)))
+    summaries = [tuple(a[0] for a in s) for s in scans]
+    suffixes = _exclusive_segment_fold(summaries, _smooth_combine, identities, suffix=True)
+    out_m, out_P = [], []
+    for scan, suffix in zip(scans, suffixes):
+        _, sm, sP = _smooth_combine(scan, _broadcast_rows(suffix, scan[0].shape[0]))
+        out_m.append(sm)
+        out_P.append(sP)
+    return out_m, out_P
+
+
+def _sharded_lgssm_sampler(params, y_blocks, mask_blocks, devices, generator, num_draws,
+                           noise=None):
+    """Durbin-Koopman draws ``sm(y) + z* - sm(y*)`` over the slots, every
+    draw at once under ``torch.func.vmap``; the noise of draw ``j`` is
+    ``noise``'s row ``j`` or, without ``noise``, :func:`_draw_noise` on
+    ``generator`` draw by draw (on the first slot's device)."""
+    home = devices[0]
+    p_home = _to(params, home)
+    F, H = p_home["F"], p_home["H"]
+    T = sum(int(b.shape[0]) for b in y_blocks)
+    sm_y, _ = _sharded_lgssm_smoother(params, y_blocks, mask_blocks, devices)
+    sm_y = _join(sm_y, home)
+    if noise is None:
+        draws = [_draw_noise(p_home, generator, T) for _ in range(num_draws)]
+        noise = tuple(torch.stack(parts) for parts in zip(*draws))
+    z0s, ws, vs = (torch.as_tensor(a).to(home) for a in noise)
+
+    def one(z0, w, v):
+        z_star = _join(_sharded_lgssm_simulate(F, z0, _cut(w, devices), devices), home)
+        y_star = z_star @ H.T + v
+        sm_star, _ = _sharded_lgssm_smoother(params, _cut(y_star, devices), mask_blocks,
+                                             devices)
+        return sm_y + z_star - _join(sm_star, home)
+
+    return torch.func.vmap(one)(z0s, ws, vs)

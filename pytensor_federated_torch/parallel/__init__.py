@@ -1,4 +1,4 @@
-"""Mesh, shard packing and the sharded evaluator."""
+"""Mesh, shard packing, the sharded evaluator and the ring collectives."""
 
 from .mesh import (
     CHAINS_AXIS,
@@ -6,12 +6,20 @@ from .mesh import (
     SHARDS_AXIS,
     DeviceLoad,
     Mesh,
+    NamedSharding,
     get_load,
     healthy_devices,
     make_mesh,
     single_device_mesh,
 )
 from .packing import ShardedData, pack_shards
+from .ring import (
+    ring_all_pairs_sum,
+    ring_attention,
+    ring_shift,
+    seq_sharded_markov_logp,
+    shift_right_across_shards,
+)
 from .sharded import FederatedLogp, NoFederatedShards, sharded_compute
 
 __all__ = [
@@ -21,12 +29,18 @@ __all__ = [
     "DeviceLoad",
     "FederatedLogp",
     "Mesh",
+    "NamedSharding",
     "NoFederatedShards",
     "ShardedData",
     "get_load",
     "healthy_devices",
     "make_mesh",
     "pack_shards",
+    "ring_all_pairs_sum",
+    "ring_attention",
+    "ring_shift",
+    "seq_sharded_markov_logp",
+    "shift_right_across_shards",
     "sharded_compute",
     "single_device_mesh",
 ]

@@ -19,6 +19,11 @@ Axis conventions (all optional — models use what they need):
 - ``"seq"``     : sequence/context parallelism for long-sequence
   likelihoods.
 
+:class:`NamedSharding` is the twin of ``NamedSharding(mesh, P(axis))``:
+a mesh and one axis, along which a batch's leading dimension is cut into
+contiguous blocks, block ``j`` evaluated on slot ``j``'s device
+(:meth:`NamedSharding.map_blocks`).
+
 The JAX package's ``mark_varying`` has no counterpart here.  Under
 ``shard_map`` a replicated parameter must be marked device-varying
 before user code differentiates it inside the body, or its gradient
@@ -33,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Any, List, Mapping, Optional, Sequence
+from typing import Any, Callable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +53,7 @@ __all__ = [
     "SHARDS_AXIS",
     "DeviceLoad",
     "Mesh",
+    "NamedSharding",
     "get_load",
     "healthy_devices",
     "make_mesh",
@@ -84,6 +90,71 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)}, devices={self.devices.reshape(-1).tolist()})"
+
+
+class NamedSharding:
+    """A mesh and one of its axes: the leading dimension of a batch is
+    cut into ``mesh.shape[axis]`` contiguous blocks, block ``j`` on the
+    device of slot ``j`` along ``axis`` (:meth:`Mesh.slot_devices`).
+
+    The twin of the JAX package's ``NamedSharding(mesh, P(axis))`` for
+    a leading axis.  In a single controller a block does not stay on its
+    device between calls: :meth:`map_blocks` sends each block to its
+    slot's device, runs a function there, and gathers the results on the
+    first slot's device in slot order, where the caller's loop lives."""
+
+    def __init__(self, mesh: Mesh, axis: str):
+        if axis not in mesh.axis_names:
+            raise ValueError(f"mesh has no axis {axis!r}: {mesh.axis_names}")
+        self.mesh = mesh
+        self.axis = axis
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return self.mesh.slot_devices(self.axis)
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple:
+        """The shape of one block of an array of ``shape``; raises when
+        the axis does not divide its leading dimension."""
+        shape = tuple(int(s) for s in shape)
+        n = self.mesh.shape[self.axis]
+        if not shape or shape[0] % n != 0:
+            raise ValueError(
+                f"Sharding {self!r} implies that array axis 0 is partitioned {n} times, "
+                f"but the dimension size is {shape[0] if shape else None} (full shape: {shape})"
+            )
+        return (shape[0] // n,) + shape[1:]
+
+    def map_blocks(self, fn: Callable[[torch.Tensor], Any]) -> Callable[[torch.Tensor], Any]:
+        """``fn`` of a batch, computed block by block: slot ``j``'s block
+        of ``x`` goes to its device and through ``fn`` there, and the
+        outputs (a tensor or a tuple of tensors, each with the batch as
+        its leading axis) are concatenated on the first slot's device in
+        slot order.  A batch the axis does not divide (a one-chain probe)
+        runs whole on the first slot's device."""
+        devices = self.devices
+        home = devices[0]
+
+        def mapped(x: torch.Tensor) -> Any:
+            n = len(devices)
+            if x.shape[0] % n != 0:
+                return _gather([fn(x.to(home))], home)
+            per = x.shape[0] // n
+            return _gather([fn(x[j * per:(j + 1) * per].to(d)) for j, d in enumerate(devices)],
+                           home)
+
+        return mapped
+
+    def __repr__(self) -> str:
+        return f"NamedSharding(mesh={dict(self.mesh.shape)}, spec=P({self.axis!r}))"
+
+
+def _gather(outs: List[Any], home: torch.device) -> Any:
+    """The blocks' outputs concatenated along their leading axis on
+    ``home``, output by output."""
+    if torch.is_tensor(outs[0]):
+        return torch.cat([o.to(home) for o in outs])
+    return type(outs[0])(torch.cat([o[i].to(home) for o in outs]) for i in range(len(outs[0])))
 
 
 def _visible_devices() -> List[torch.device]:

@@ -45,7 +45,12 @@ from .hmc import (
     sample_momentum,
     uniform_like,
 )
-from .mcmc import SampleResult, make_batch_logp_and_grad, make_flat_logp_and_grad
+from .mcmc import (
+    SampleResult,
+    make_batch_logp_and_grad,
+    make_flat_logp_and_grad,
+    place_with_sharding,
+)
 from .util import da_init, da_update
 
 __all__ = ["chees_sample"]
@@ -180,13 +185,22 @@ def chees_sample(
     jitter: float = 1.0,
     max_leapfrogs: int = 1024,
     logp_and_grad_fn: Optional[Callable] = None,
+    chain_sharding: Optional[Any] = None,
 ) -> SampleResult:
     """Cross-chain adaptive HMC; more chains = better adaptation.
 
     ``max_leapfrogs`` bounds the per-iteration trajectory.  Every chain
     runs in one batch on the device of ``init_params``; ``generator``
     (on that device) draws the initial jitter, then every iteration's
-    momenta and accept uniforms for all chains at once."""
+    momenta and accept uniforms for all chains at once.
+
+    ``chain_sharding`` (a :class:`..parallel.mesh.NamedSharding`)
+    partitions the chain batch over a mesh axis, as in
+    :func:`.mcmc.sample`: each slot's block of chains is evaluated on its
+    device; the cross-chain adaptation reductions (mean accept-stat,
+    ChEES gradient, cross-chain variance mass) run on the first slot's
+    device, where the gathered batch lives.  ``num_chains`` must be
+    divisible by the mesh axis."""
     flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(logp_fn, init_params)
     lg = make_batch_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
     dim, dtype, device = flat_init.shape[0], flat_init.dtype, flat_init.device
@@ -195,6 +209,10 @@ def chees_sample(
     x = flat_init[None, :] + jitter * torch.randn(
         (C, dim), generator=generator, dtype=dtype, device=device
     )
+    x = place_with_sharding(x, chain_sharding, axis_desc=f"num_chains={C}")
+    if chain_sharding is not None:
+        lg = chain_sharding.map_blocks(lg)
+        device = x.device
     logp, grad = lg(x)
 
     def draws(x, logp):

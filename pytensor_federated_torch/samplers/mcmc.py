@@ -219,6 +219,25 @@ def graph_batch_logp_and_grad(lg: Callable, example: torch.Tensor) -> Callable:
     return replay
 
 
+def place_with_sharding(x: torch.Tensor, sharding: Any, *, axis_desc: str) -> torch.Tensor:
+    """Validate that ``sharding`` (a :class:`..parallel.mesh.NamedSharding`)
+    partitions ``x``'s leading axis, and place ``x`` on the first slot's
+    device, where the sampler's loop runs — the one validation shared by
+    ``sample``, ``chees_sample`` and ``pt_sample``, with the JAX
+    package's error text."""
+    if sharding is None:
+        return x
+    try:
+        sharding.shard_shape(x.shape)
+    except ValueError as e:
+        raise ValueError(
+            f"{axis_desc} is not shardable by sharding={sharding}: {e} "
+            "— the leading dimension must be divisible by the mesh "
+            "axis the spec partitions it over"
+        ) from None
+    return x.to(sharding.devices[0])
+
+
 def make_kernel_step(
     lg: Callable, kernel: str, *, max_depth: int = 8, num_hmc_steps: int = 16
 ):
@@ -312,6 +331,7 @@ def sample(
     logp_and_grad_fn: Optional[Callable] = None,
     dense_mass: bool = False,
     cuda_graph: bool = False,
+    chain_sharding: Optional[Any] = None,
 ) -> SampleResult:
     """Run adaptive MCMC against ``logp_fn`` (params tree -> scalar).
 
@@ -334,6 +354,16 @@ def sample(
     (:func:`graph_batch_logp_and_grad`): the same evaluations with their
     host dispatch gone; ``result.extra`` then
     holds ``{"graph_replays": n}``, the batched evaluations replayed.
+
+    ``chain_sharding`` (a :class:`..parallel.mesh.NamedSharding`, e.g.
+    ``NamedSharding(make_mesh({"chains": 2}, devices=...), "chains")``)
+    partitions the chain batch over the axis's slots: every batched
+    evaluation sends slot ``j``'s block of chains to its device and
+    evaluates it there (one vmapped call per slot), and the loop, its
+    random draws and the chains' state stay on the first slot's device.
+    ``num_chains`` must be divisible by the axis.  The draws equal an
+    unsharded run's wherever a chain's evaluation gives the same bits
+    in a block as in the whole batch.
     """
     flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(logp_fn, init_params)
     dtype, device = flat_init.dtype, flat_init.device
@@ -342,16 +372,25 @@ def sample(
         init_flat = init_flat + jitter * torch.randn(
             init_flat.shape, generator=generator, dtype=dtype, device=device
         )
+    init_flat = place_with_sharding(
+        init_flat, chain_sharding, axis_desc=f"num_chains={num_chains}"
+    )
+    device = init_flat.device
     if kernel == "metropolis":
+        logp = torch.func.vmap(flat_logp)
+        if chain_sharding is not None:
+            logp = chain_sharding.map_blocks(logp)
         with _tspans.span("mcmc.sample", kernel="metropolis", chains=num_chains):
             t0 = time.perf_counter()
             result = _sample_metropolis(
-                flat_logp, unravel, init_flat, generator, num_warmup, num_samples
+                logp, unravel, init_flat, generator, num_warmup, num_samples
             )
             if _tspans.enabled():
                 _record_run("metropolis", device, t0, num_chains, num_warmup, num_samples)
         return result
     lg = make_batch_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
+    if chain_sharding is not None:
+        lg = chain_sharding.map_blocks(lg)
     if cuda_graph:
         lg = graph_batch_logp_and_grad(lg, init_flat)
     kernel_step = make_kernel_step(
@@ -394,13 +433,13 @@ def sample(
 
 
 @torch.no_grad()
-def _sample_metropolis(flat_logp, unravel, init_flat, generator, num_warmup, num_samples):
-    """Adaptive-scale random-walk Metropolis, every chain in one batch.
+def _sample_metropolis(logp, unravel, init_flat, generator, num_warmup, num_samples):
+    """Adaptive-scale random-walk Metropolis, every chain in one batch
+    (``logp`` maps ``(C, d)`` to ``(C,)``).
 
     Warmup adapts each chain's log proposal scale Robbins-Monro style
     toward 0.35 acceptance; the scales are a ``(C,)`` device tensor
     throughout, so no step waits for the host."""
-    logp = torch.func.vmap(flat_logp)
     state = metropolis_init(logp, init_flat)
     log_scale = torch.zeros(init_flat.shape[:1], dtype=init_flat.dtype, device=init_flat.device)
     for _ in range(num_warmup):

@@ -17,8 +17,10 @@ batched evaluation (:func:`.mcmc.make_batch_logp_and_grad`) — then one
 swap pass of gathers over the temperature axis.  The per-rung step
 sizes, masses and ladders are ``(chains, temps, ...)`` tensors on the
 device; the iteration loop runs on the host with no sync.  Swap
-proposals alternate even/odd adjacent pairs.  Sharding the replica
-block over GPUs (the JAX package's ``temp_sharding``) is not ported.
+proposals alternate even/odd adjacent pairs.  ``temp_sharding``
+partitions one stack's rungs over a mesh axis: each slot's block of
+rungs is evaluated on its device, and the swap pass runs where the
+gathered block lives.
 """
 
 from __future__ import annotations
@@ -28,7 +30,13 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .mcmc import SampleResult, make_batch_logp_and_grad, make_flat_logp_and_grad
+from .mcmc import (
+    SampleResult,
+    graph_batch_logp_and_grad,
+    make_batch_logp_and_grad,
+    make_flat_logp_and_grad,
+    place_with_sharding,
+)
 from .util import welford_init, welford_update, welford_variance
 
 __all__ = ["pt_sample"]
@@ -111,9 +119,11 @@ def pt_sample(
     target_accept: float = 0.7,
     jitter: float = 1.0,
     logp_and_grad_fn: Optional[Callable] = None,
+    temp_sharding: Optional[Any] = None,
     adapt_ladder: bool = False,
     target_swap: float = 0.4,
     adapt_mass: bool = True,
+    cuda_graph: bool = False,
 ) -> SampleResult:
     """Replica-exchange HMC; returns the COLD (beta = 1) chain's draws as a
     :class:`SampleResult` with ``chains = num_chains``.
@@ -140,6 +150,20 @@ def pt_sample(
     draws.  ``adapt_ladder=True`` tunes each rung's log-gap during warmup
     toward ``target_swap`` by stochastic approximation, with ``beta_1``
     pinned at 1; the ladder freezes for the draw phase.
+
+    ``temp_sharding`` (a :class:`..parallel.mesh.NamedSharding`, e.g.
+    over ``make_mesh({"temps": 4}, ...)``'s ``"temps"`` axis) partitions
+    the rungs of ONE stack over the axis's slots: every leapfrog step
+    evaluates slot ``j``'s block of rungs on its device, and the swap
+    pass's permutation runs on the first slot's device, where the
+    gathered ``(temps, dim)`` block and the generator live.  It refuses
+    ``num_chains > 1`` (shard one stack's ladder or run replicated
+    stacks, not both) and a ``num_temps`` the axis does not divide.
+
+    ``cuda_graph=True`` (CUDA only) replays the replica block's value+grad
+    from a CUDA graph, as :func:`.mcmc.sample`'s does: the same draws
+    without the evaluation's host dispatch; ``extra["graph_replays"]``
+    then counts the replayed evaluations.
     """
     if num_temps < 2:
         raise ValueError(
@@ -153,10 +177,18 @@ def pt_sample(
         )
     if num_chains < 1:
         raise ValueError(f"num_chains must be >= 1, got {num_chains}")
+    if num_chains > 1 and temp_sharding is not None:
+        raise ValueError(
+            "num_chains > 1 is incompatible with temp_sharding: shard "
+            "one stack's temperature ladder OR run replicated stacks "
+            "(vmapped), not both"
+        )
     flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(
         logp_fn, init_params, logp_and_grad_fn
     )
     lg = make_batch_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
+    if temp_sharding is not None:
+        lg = temp_sharding.map_blocks(lg)
     C, K, dim = num_chains, num_temps, flat_init.shape[0]
     dtype, device = flat_init.dtype, flat_init.device
     kw = dict(dtype=dtype, device=device)
@@ -175,6 +207,11 @@ def pt_sample(
         return v.reshape(C, K), gr.reshape(C, K, dim)
 
     x = flat_init + jitter * torch.randn((C, K, dim), generator=generator, **kw)
+    if temp_sharding is not None:
+        x = place_with_sharding(x[0], temp_sharding, axis_desc=f"num_temps={num_temps}")[None]
+        flat_init = flat_init.to(x.device)
+    if cuda_graph:
+        lg = graph_batch_logp_and_grad(lg, x.reshape(C * K, dim))
     u, g = lg_block(x)
     # NaN-safe start: a replica jittered into a -inf region would freeze;
     # it restarts from the unjittered point.
@@ -265,5 +302,6 @@ def pt_sample(
         extra={
             "swap_rate_per_pair": per_pair,
             "betas": betas_of(log_rho) if adapt_ladder else betas0.clone(),
+            **({"graph_replays": lg.calls} if cuda_graph else {}),
         },
     )

@@ -1055,3 +1055,98 @@ def test_mesh_on_the_card_matches_float64_on_the_cpu():
         err = (g[k].cpu().double() - g64[k]).abs()
         assert bool((err <= 1e-4 * g64[k].abs() + 1e-5 * g64[k].abs().max()).all()), k
     assert torch.device("cuda", 0) in pft.healthy_devices()
+
+
+@pytest.mark.gpu
+def test_seq_sharded_lgssm_on_the_card_matches_float64_on_the_cpu():
+    """SeqShardedLGSSM at T = 4,096 over a 4-slot seq mesh of one card,
+    float32 with TF32 off, every fifth step and t = 1 masked: logp rtol
+    1e-4, gradient rtol 1e-3 / atol 1e-4 (the JAX tests' float32
+    tolerances) and smoothed moments rtol 1e-3 / atol 1e-4 against the
+    single-device filters in float64 on the CPU."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.models import statespace as ss
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    y, params = pft.generate_lgssm_data(T=4096, seed=7, device=dev)
+    mask = (np.arange(4096) % 5 != 2).astype(np.float32)
+    mask[0] = 0.0
+    mesh = pft.make_mesh({"seq": 4}, devices=[torch.device("cuda", 0)] * 4)
+    model = ss.SeqShardedLGSSM(y, mesh, mask=mask)
+    v, g = model.logp_and_grad(params)
+    y64, mask64 = y.cpu().double(), torch.as_tensor(mask, dtype=torch.float64)
+    p64 = {k: t.cpu().double() for k, t in params.items()}
+    v64, g64 = value_and_grad(lambda q: ss.kalman_logp_parallel(q, y64, mask64), p64)
+    assert abs(float(v) - float(v64)) <= 1e-4 * abs(float(v64))
+    for k in g64:
+        np.testing.assert_allclose(g[k].cpu().double().numpy(), g64[k].numpy(), rtol=1e-3,
+                                   atol=1e-4)
+    for a, b in zip(model.smoothed_moments(params), ss.kalman_smoother_parallel(p64, y64, mask64)):
+        np.testing.assert_allclose(a.cpu().double().numpy(), b.numpy(), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_multichain_on_the_card_matches_float64_on_the_cpu():
+    """The flagship's per-chain logp+grad on a {"chains": 2, "shards": 2}
+    mesh of one card against the same function on a CPU mesh in
+    float64 (value rtol 1e-5, gradient within 1e-4 |g| + 1e-5 max|g|),
+    and a short NUTS run, its evaluation replayed from a CUDA graph,
+    giving the same bits twice on one generator."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.parallel.multichain import (
+        multichain_logp_and_grad,
+        multichain_sample,
+    )
+    from pytensor_federated_torch.samplers.util import ravel
+
+    dev = _cuda()
+    data, _ = pft.generate_node_data(8, n_obs=4096, seed=123, device=dev)
+    model = pft.FederatedLinearRegression(data)
+    cuda0 = torch.device("cuda", 0)
+    mesh = pft.make_mesh({"chains": 2, "shards": 2}, devices=[cuda0] * 4)
+    cpu_mesh = pft.make_mesh({"chains": 2, "shards": 2}, devices=["cpu"] * 4)
+    flat0, unravel = ravel(model.init_params())
+    lg = multichain_logp_and_grad(model.fed.per_shard_logp, model.fed.data, unravel,
+                                  mesh=mesh, prior_logp=model.prior_logp)
+    lg64 = multichain_logp_and_grad(
+        model.fed.per_shard_logp,
+        tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), model.fed.data),
+        lambda x: unravel(x), mesh=cpu_mesh, prior_logp=model.prior_logp)
+    X = flat0 + 0.05 * torch.randn((2, flat0.shape[0]), generator=torch.Generator(dev).manual_seed(1),
+                                   device=dev)
+    (v, g), (v64, g64) = lg(X), lg64(X.cpu().double())
+    np.testing.assert_allclose(v.cpu().double().numpy(), v64.numpy(), rtol=1e-5)
+    err = (g.cpu().double() - g64).abs()
+    assert bool((err <= 1e-4 * g64.abs() + 1e-5 * g64.abs().max(dim=1, keepdim=True).values).all())
+    runs = [multichain_sample(model.fed.per_shard_logp, model.fed.data, model.init_params(),
+                              mesh=mesh, generator=torch.Generator(dev).manual_seed(3),
+                              num_samples=10, num_warmup=10, prior_logp=model.prior_logp,
+                              dense_mass=True, cuda_graph=True)[0] for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and bool(torch.isfinite(runs[0]).all())
+    assert multichain_sample.graph_replays > 0
+
+
+@pytest.mark.gpu
+def test_pt_sample_from_a_cuda_graph_gives_the_eager_draws():
+    """``pt_sample(cuda_graph=True)`` on a bimodal target: the eager run's
+    draws and swap rates, bit for bit, and one replay per evaluation."""
+    import pytensor_federated_torch as pft
+
+    dev = _cuda()
+
+    def bimodal(params):
+        x = params["x"]
+        return torch.logaddexp(-0.5 * torch.sum(((x + 3.0) / 0.5) ** 2),
+                               -0.5 * torch.sum(((x - 3.0) / 0.5) ** 2))
+
+    init = {"x": torch.zeros(4, device=dev)}
+    kw = dict(num_chains=2, num_temps=8, num_warmup=40, num_samples=40, num_leapfrog=4)
+    eager = pft.samplers.pt_sample(bimodal, init, generator=torch.Generator(dev).manual_seed(1),
+                                   **kw)
+    graphed = pft.samplers.pt_sample(bimodal, init, generator=torch.Generator(dev).manual_seed(1),
+                                     cuda_graph=True, **kw)
+    assert torch.equal(eager.samples["x"], graphed.samples["x"])
+    assert torch.equal(eager.extra["swap_rate_per_pair"], graphed.extra["swap_rate_per_pair"])
+    assert graphed.extra["graph_replays"] == 2 + kw["num_leapfrog"] * (kw["num_warmup"]
+                                                                       + kw["num_samples"])

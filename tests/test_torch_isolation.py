@@ -214,11 +214,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: pft.get_load(),
         lambda: pft.healthy_devices(),
         lambda: pft.diagnostics.log_device_load(),
+        lambda: pft.models.SeqShardedAR1(torch.zeros(4).numpy()),
     ],
     ids=["generate_lgssm_data", "default_lgssm_params", "generate_gp_data", "FederatedLGSSMPanel",
          "peak_flops", "demo_node.make_node_compute", "demo_model.run_local", "make_mesh",
          "make_mesh_shape", "single_device_mesh", "get_load", "healthy_devices",
-         "log_device_load"],
+         "log_device_load", "SeqShardedAR1"],
 )
 def test_new_entry_points_default_to_cuda(monkeypatch, call):
     """The state-space, GP, FLOP, demo and mesh entry points ask for CUDA
@@ -270,3 +271,45 @@ def test_top_level_all_is_the_jax_packages_minus_the_unported():
     assert set(port_all) - PORT_ONLY_TOP_LEVEL == set(jax_all) - set(UNPORTED_TOP_LEVEL)
     assert PORT_ONLY_TOP_LEVEL <= set(port_all) and set(UNPORTED_TOP_LEVEL) <= set(jax_all)
     assert [n for n in port_all if not hasattr(pft, n)] == []
+
+
+#: Names of the JAX package's ``parallel/__init__.py`` whose modules the
+#: port does not have yet (ROADMAP Queue 1 item 4, "Then").  The ring
+#: collectives are ported; these are not.
+UNPORTED_PARALLEL = {
+    "EXPERTS_AXIS": "expert.py", "ExpertShardedMixture": "expert.py",
+    "TP_AXIS": "tensor.py", "TensorParallelLogistic": "tensor.py",
+    "ScatteredGrads": "zero.py", "ZeroShardedLogpGrad": "zero.py",
+    "heads_to_seq": "ulysses.py", "seq_to_heads": "ulysses.py",
+    "ulysses_attention": "ulysses.py",
+    "fedavg": "federated.py", "federated_broadcast": "federated.py",
+    "federated_map": "federated.py", "federated_mean": "federated.py",
+    "federated_sum": "federated.py",
+    "HeartbeatServer": "multihost.py", "detect_dead_peers": "multihost.py",
+    "initialize_multihost": "multihost.py", "make_multihost_mesh": "multihost.py",
+    "probe_peer": "multihost.py", "remesh_after_failure": "multihost.py",
+}
+#: Names of the port's ``parallel`` that the JAX package's does not
+#: export (its mesh is ``jax.sharding.Mesh``; ``NamedSharding`` comes
+#: from ``jax.sharding`` there).
+PORT_ONLY_PARALLEL = {"Mesh", "NamedSharding", "NoFederatedShards"}
+
+
+def test_parallel_all_is_the_jax_packages_minus_the_unported():
+    """The port's ``parallel.__all__`` is the JAX package's, ring
+    collectives included, less the names of the modules still to port,
+    plus the port's own; every name resolves."""
+    jax_all = _all_of(ROOT / "pytensor_federated_tpu" / "parallel" / "__init__.py")
+    port_all = _all_of(ROOT / "pytensor_federated_torch" / "parallel" / "__init__.py")
+    assert len(port_all) == len(set(port_all))
+    assert set(port_all) - PORT_ONLY_PARALLEL == set(jax_all) - set(UNPORTED_PARALLEL)
+    assert set(UNPORTED_PARALLEL) <= set(jax_all)
+    assert [n for n in port_all if not hasattr(pft.parallel, n)] == []
+
+
+def test_models_export_every_name_of_the_jax_models():
+    """Every name of the JAX package's ``models.__all__`` resolves on the
+    port's ``models``: with ``SeqShardedAR1``, ``SeqShardedLGSSM`` and
+    ``generate_ar1_data`` none is missing."""
+    jax_all = _all_of(ROOT / "pytensor_federated_tpu" / "models" / "__init__.py")
+    assert [n for n in jax_all if not hasattr(pft.models, n)] == []
