@@ -15,6 +15,8 @@
                                            # sgld, sbc, checkpoint, demos
     python3 chip_smoke.py --only slice11   # device, build, nuts_large, optim, mesh
     python3 chip_smoke.py --only slice12   # device, build, nuts_large, multichain, seq
+    python3 chip_smoke.py --only slice12 --multichain-seeds 21,22,23,24,25
+                                           # the same, the multichain NUTS on 5 seeds
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -43,13 +45,14 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    the kernel, 4 chains x 250 warmup + 250 draws in lockstep: every
    leaf is one batched evaluation of the four chains, replayed from a
    CUDA graph (``cuda_graph=True``).  A replay never reaches the kernel
-   wrapper's host-side launch counter, so the phase first captures a
-   graph of the same evaluation, holds its replays bit for bit against
-   eager calls at 8 states, times 50 eager calls and 50 replays, and
-   counts the kernel's launches per replay with the profiler over 10
-   replays (rounded up: the profiler can drop an event, never add one):
-   it must be exactly one.  The phase's launches are that count times
-   the run's replays, plus the graph's eager warm-up calls.
+   wrapper's host-side launch counter, so after the run the phase takes
+   the run's own graph (``extra["graph"]``), holds its replays bit for
+   bit against eager calls at 8 states, times 50 eager calls and 50
+   replays, and has the profiler record the kernel's launches over a
+   window of 10 replays (after one replay of wait and two of warm-up):
+   it must see exactly 10, one per replay.  The phase's launches are
+   that count times the run's replays, plus the graph's eager warm-up
+   calls.
 6. ``nuts_large`` — the same at 8 x 131,072 observations, so the kernel
    moves real bytes on every leapfrog step: 1 chain x 300 warmup + 300
    draws with a dense mass matrix.  At this size the data pin every
@@ -306,10 +309,14 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    card and against float64 on the CPU; split R-hat across the chains
    < 1.05 of what the data identify (slope, log_sigma, each shard's
    intercept + offset; the raw parameters' recorded); means within 4
-   combined MCSEs of ``nuts_large``'s;
-   a short run twice on one generator, bit for bit.  Then
+   combined MCSEs of ``nuts_large``'s (``--multichain-seeds`` gates more
+   seeds the same way); the run's own graph launches the kernel as an
+   eager call does (the profiler, as in ``nuts``; none here: the
+   per-shard function is the plain path); a short run twice on one
+   generator, bit for bit.  Then
    ``sample(chain_sharding=...)`` (4 chains over ``{"chains": 2}``,
-   graphed, through the kernel: two launches per replay, one per block)
+   graphed, through the kernel: two launches per replay of the run's
+   own graph, one per block, by the profiler)
    and ``chees_sample(chain_sharding=...)`` (8 chains, eager, through the
    kernel) at 8 x 64, and ``pt_sample(temp_sharding=...)`` on the
    tempering phase's bimodal (8 rungs over ``{"temps": 8}``), each against
@@ -491,12 +498,12 @@ def emit(obj) -> None:
 # phases' times on the H100 host (PERF.md section 5),
 # rounded up.
 PHASE_EXPECTED_S = {
-    "build": 10, "kernels": 20, "autograd": 5, "nuts": 35, "nuts_large": 50,
+    "build": 10, "kernels": 20, "autograd": 5, "nuts": 35, "nuts_large": 55,
     "federated": 90, "pool": 105, "gateway": 60, "radon": 25, "logistic": 25,
     "lv_ode": 25, "wide_logistic": 5, "chees": 10, "lgssm": 50, "gp": 5,
     "tempering": 25, "families": 10, "model_check": 80,
     "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 12, "demos": 40,
-    "optim": 15, "mesh": 50, "multichain": 45, "seq": 15,
+    "optim": 15, "mesh": 50, "multichain": 50, "seq": 15,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -1051,74 +1058,96 @@ def _recovered(derived):
 
 NUTS_EAGER_EVALS = 50  # eager batched evaluations timed beside the graphed run
 NUTS_BITS_POINTS = 8  # states at which a replay is held bit for bit against an eager call
+GRAPH_PROFILED_REPLAYS = 10  # replays in the profiler's recording window
+GRAPH_PROFILE_WINDOWS = 3  # windows at most, until one records every expected event
 
 
-def _kernel_launches_per_replay(replay, x, calls=10):
-    """The linreg kernel's launches on the card per replay of ``replay``
-    at ``x``, counted by the profiler over ``calls`` replays (a replay
-    never reaches the wrapper's host-side counter), and the kernel
-    events it saw; ``(None, 0)`` when the profiler records no device
-    activity at all, after three tries.
+def _kernel_events_in_window(replay, x, calls):
+    """The linreg kernel's events on the card that a profiler records
+    over ``calls`` replays of ``replay`` at ``x``.  The profiler runs on a
+    schedule: one replay before it starts and two while it warms up
+    (CUPTI's activity buffers being set up), both recording nothing, then
+    a window of ``calls`` replays, each finished before the next step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    A replay launches the same kernels every time, and the profiler on
-    the GPU host now and then drops an event but never adds one (it has
-    seen 4 of 5 and 9 of 10 expected events, with a correlation warning
-    on stderr; PERF.md section 6), so the count per replay is the events
-    seen over the replays, rounded up."""
-    for _ in range(3):
-        on_card = _card_events(lambda: replay(x), calls)
-        if on_card:
-            seen = sum("linreg" in e.name for e in on_card)
-            return math.ceil(seen / calls), seen
-    return None, 0
+    sched = schedule(wait=1, warmup=2, active=calls, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
+        for _ in range(3 + calls):
+            replay(x)
+            torch.cuda.synchronize()
+            prof.step()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA and "linreg" in e.name
+               for e in prof.events())
 
 
-def _graph_check(lg, flat0, chains, dev, seed, timed=NUTS_EAGER_EVALS):
-    """A batched value+grad ``lg`` of ``chains`` chains near ``flat0``:
-    eager ms per call; on CUDA, a graph of it (as ``sample(cuda_graph=
-    True)`` captures one) whose replays are held bit for bit against
-    eager calls at NUTS_BITS_POINTS states, its ms per replay, and the
-    linreg kernel's launches per replay (profiler)."""
-    from pytensor_federated_torch.samplers.mcmc import graph_batch_logp_and_grad
-
+def _graph_points(flat0, chains, dev, seed):
+    """NUTS_BITS_POINTS chain batches ``(chains, dim)`` near ``flat0``."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    points = flat0 + 0.05 * torch.randn((NUTS_BITS_POINTS, chains) + flat0.shape, generator=g,
-                                        device=flat0.device)
-    out = {"eager_ms_per_batched_eval": _ms_per_eval(lambda: lg(points[0]), dev, timed),
-           "eager_evals_timed": timed}
-    if torch.device(dev).type == "cuda":
-        replay = graph_batch_logp_and_grad(lg, points[0])
-        bits = True
-        for x in points:
-            (v0, g0), (v1, g1) = lg(x), replay(x)
-            bits &= torch.equal(v0, v1) and torch.equal(g0, g1)
-        per_replay, seen = _kernel_launches_per_replay(replay, points[0])
-        out.update(
-            replay_bits_equal_eager=bits, bits_points=NUTS_BITS_POINTS,
-            replay_ms_per_batched_eval=_ms_per_eval(lambda: replay(points[0]), dev, timed),
-            kernel_launches_per_replay=per_replay, kernel_events_seen=seen,
-            replays_profiled=10)
+    return flat0 + 0.05 * torch.randn((NUTS_BITS_POINTS, chains) + flat0.shape, generator=g,
+                                      device=flat0.device)
+
+
+def _graph_check(replay, lg, points, expected, timed=NUTS_EAGER_EVALS):
+    """The graph that a sampler's run replayed (``extra["graph"]``, the
+    run's own graph, read after the run), against ``lg``, the same
+    batched value+grad called eagerly: its replays held bit for bit
+    against eager calls at ``points``; eager calls and replays timed
+    (``timed`` of each; no eager timing when 0); and the linreg kernel's
+    launches per replay, counted by the profiler over
+    GRAPH_PROFILED_REPLAYS replays (a replay never reaches the wrapper's
+    host-side counter).
+
+    ``launch_ok`` holds when a recording window saw exactly ``expected``
+    kernel events per replay and no window saw more.  A replay launches
+    the same kernels every time, and the profiler on the GPU host has
+    been seen to drop an event from a window without a schedule (9 of
+    10), never to add one; a window that sees fewer is recorded and
+    another is taken, up to GRAPH_PROFILE_WINDOWS in all."""
+    bits = True
+    for x in points:
+        (v0, g0), (v1, g1) = lg(x), replay(x)
+        bits &= torch.equal(v0, v1) and torch.equal(g0, g1)
+    want = expected * GRAPH_PROFILED_REPLAYS
+    seen = []
+    for _ in range(GRAPH_PROFILE_WINDOWS):
+        seen.append(_kernel_events_in_window(replay, points[0], GRAPH_PROFILED_REPLAYS))
+        if seen[-1] >= want:
+            break
+    launch_ok = seen[-1] == want and max(seen) <= want
+    dev = points.device
+    out = {"replay_bits_equal_eager": bits, "bits_points": len(points),
+           "kernel_launches_per_replay": expected if launch_ok else None,
+           "expected_launches_per_replay": expected,
+           "kernel_events_seen": seen, "replays_per_window": GRAPH_PROFILED_REPLAYS,
+           "launch_ok": launch_ok,
+           "replay_ms_per_batched_eval": _ms_per_eval(lambda: replay(points[0]), dev,
+                                                      max(timed, 5))}
+    if timed:
+        out.update(eager_ms_per_batched_eval=_ms_per_eval(lambda: lg(points[0]), dev, timed),
+                   eager_evals_timed=timed)
     return out
 
 
 def _graphed_launches(graph, host_launches, replays):
-    """The linreg kernel's launches over a ``sample(cuda_graph=True)``
-    run: the graph's three warm-up calls launch on the card and count on
-    the host; its capture counts one on the host and launches nothing;
-    each replay launches the profiler's count."""
-    return host_launches - 1 + (graph.get("kernel_launches_per_replay") or 0) * replays
+    """The linreg kernel's launches over a run that replayed a CUDA
+    graph: its eager calls (the graph's three warm-up calls) launch on
+    the card and count on the host; its capture counts a call's launches
+    on the host and launches nothing; each replay launches the
+    profiler's count per replay."""
+    per_replay = graph["expected_launches_per_replay"]
+    return host_launches - per_replay + (graph["kernel_launches_per_replay"] or 0) * replays
 
 
 def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7, dev="cuda"):
     """NUTS through the kernel, its batched evaluation replayed from a
     CUDA graph (``sample(cuda_graph=True)``).  A replay never reaches the
     kernel wrapper's host-side launch counter, so the launch gate reads
-    the profiler: one kernel launch on the card per replayed batched
-    evaluation, checked on a graph of the same evaluation, and the
+    the profiler: after the run, the run's own graph (``extra["graph"]``)
+    is replayed under the profiler and must launch the kernel exactly
+    once per replay; its replays are held bit for bit against eager calls
+    at the same states, and eager calls and replays are timed.  The
     phase's launches are that count times the run's replays plus the
-    graph's eager warm-up launches.  Before the run, replays of that
-    graph are held bit for bit against eager calls at the same states,
-    and eager calls are timed."""
+    graph's eager warm-up launches."""
     import pytensor_federated_torch as pft
     from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
     from pytensor_federated_torch.samplers.mcmc import (
@@ -1129,8 +1158,8 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7, dev="cuda
     cuda = torch.device(dev).type == "cuda"
     _, model, _, posterior = _flagship(n_obs, dev)
     flat_logp, flat0, unravel, _ = make_flat_logp_and_grad(posterior, model.init_params())
-    graph = _graph_check(make_batch_logp_and_grad(flat_logp, unravel), flat0, chains, dev,
-                         seed + 1000)
+    lg = make_batch_logp_and_grad(flat_logp, unravel)
+    points = _graph_points(flat0, chains, dev, seed + 1000)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     _sync(dev)
@@ -1145,13 +1174,15 @@ def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7, dev="cuda
     host_launches = linreg_reductions.launches
     if cuda:
         replays = grad_evals = res.extra["graph_replays"]
+        graph = _graph_check(res.extra["graph"], lg, points, expected=1)
         launches = _graphed_launches(graph, host_launches, replays)
-        launch_ok = (graph["kernel_launches_per_replay"] == 1
-                     and graph["replay_bits_equal_eager"] and replays > 0)
+        launch_ok = graph["launch_ok"] and graph["replay_bits_equal_eager"] and replays > 0
         graph.update(graph_replays=replays, eager_kernel_launches=host_launches - 1)
     else:
         grad_evals = launches = host_launches
         launch_ok = host_launches > 0
+        graph = {"eager_ms_per_batched_eval": _ms_per_eval(lambda: lg(points[0]), dev,
+                                                           NUTS_EAGER_EVALS)}
 
     s = res.samples
     derived = {
@@ -2814,9 +2845,10 @@ def _against_f64(model, model64, points, *, value_rtol=MODEL_VALUE_RTOL,
     return ok, out
 
 
-def _ms_per_eval(fn, dev, reps):
-    """Median host time of ``reps`` synchronised calls, after 3 warm-ups."""
-    for _ in range(3):
+def _ms_per_eval(fn, dev, reps, warm=3):
+    """Median host time of ``reps`` synchronised calls, after ``warm``
+    warm-up calls."""
+    for _ in range(warm):
         fn()
     _sync(dev)
     times = []
@@ -4978,7 +5010,8 @@ def phase_mesh(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], slots=MESH_SLOTS, nut
 # of its length, and split R-hat across the chains of the raw intercept
 # read 1.021 and 1.091 for two seeds.  So the R-hat gate reads what the
 # data identify: slope, log_sigma and each shard's intercept + offset;
-# the raw parameters' R-hat is recorded beside it.
+# the raw parameters' R-hat is recorded beside it.  It does not hold the
+# raw parameters to R-hat < 1.05.
 # Then short sharded runs held against the same runs unsharded: sample()
 # (4 chains over {"chains": 2}, through the kernel, graphed) and
 # chees_sample() (8 chains over {"chains": 2}, eager, through the kernel)
@@ -4986,6 +5019,7 @@ def phase_mesh(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], slots=MESH_SLOTS, nut
 # 8 rungs over {"temps": 8}.
 MULTICHAIN_MESH = {"chains": 2, "shards": 2}
 MULTICHAIN_NUTS = (100, 100)  # warmup, draws per chain
+MULTICHAIN_SEEDS = (21,)  # the NUTS run's seeds (--multichain-seeds runs more)
 MULTICHAIN_MAX_DEPTH = 8
 MULTICHAIN_TIMED_EVALS = 10
 MULTICHAIN_RERUN = (3, 3)  # the rerun-bits check: warmup, draws, twice
@@ -5055,9 +5089,10 @@ def _bits_or_moments(a, b):
 
 
 def phase_multichain(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], nuts=MULTICHAIN_NUTS,
-                     rerun=MULTICHAIN_RERUN):
+                     rerun=MULTICHAIN_RERUN, seeds=MULTICHAIN_SEEDS):
     """Slice 12, the chains axis: multichain_sample on a 2-D mesh of the
-    card, and chain and temperature sharding in the samplers."""
+    card (its NUTS run once for each of ``seeds``, every run gated), and
+    chain and temperature sharding in the samplers."""
     import pytensor_federated_torch as pft
     from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
     from pytensor_federated_torch.parallel.mesh import NamedSharding
@@ -5117,45 +5152,77 @@ def phase_multichain(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], nuts=MULTICHAIN
         return multichain_sample(shard_fn, model.fed.data, start, mesh=mesh, generator=gen,
                                  num_warmup=warmup, num_samples=draws, dense_mass=True,
                                  prior_logp=prior, max_depth=MULTICHAIN_MAX_DEPTH,
-                                 cuda_graph=cuda)
+                                 cuda_graph=cuda, return_extra=True)
 
+    ref = nuts_line.get("recovered", {})
+
+    def readings(draws, accept):
+        """R-hat across the chains of what the data identify (the gate)
+        and of the raw parameters, and the derived moments against
+        nuts_large's within 4 combined MCSEs."""
+        samples = unravel(draws)
+        derived = {"intercept": samples["intercept"], "slope": samples["slope"],
+                   "sigma": torch.exp(samples["log_sigma"])}
+        identified = {"slope": samples["slope"], "log_sigma": samples["log_sigma"],
+                      "shard_intercepts": samples["intercept"][..., None] + samples["offsets"]}
+        ess = pft.samplers.effective_sample_size(derived)
+        moments, moments_ok = {}, bool(ref)
+        for k, d in derived.items():
+            mean, sd = float(d.double().mean()), float(d.double().std())
+            mcse = sd / float(ess[k]) ** 0.5
+            r = ref.get(k, {})
+            combined = math.sqrt(mcse**2 + r.get("mcse", float("inf")) ** 2)
+            within = abs(mean - r.get("mean", float("inf"))) <= 4 * combined
+            moments[k] = {"mean": mean, "sd": sd, "ess": float(ess[k]), "mcse": mcse,
+                          "nuts_large_mean": r.get("mean"), "nuts_large_mcse": r.get("mcse"),
+                          "within_4_combined_mcse": within}
+            moments_ok &= within
+        return {"accept_prob": float(accept.mean()),
+                "max_split_rhat_identified": max(
+                    float(r.max()) for r in pft.samplers.split_rhat(identified).values()),
+                "split_rhat_raw": {k: float(r.max())
+                                   for k, r in pft.samplers.split_rhat(samples).items()},
+                "moments": moments, "moments_ok": moments_ok,
+                "finite": bool(torch.isfinite(draws).all())}
+
+    # The kernel's launches in one eager call of the mesh's evaluation:
+    # what each replay of the run's graph must launch on the card.
+    linreg_reductions.launches = 0
+    lg(X)
+    per_call = linreg_reductions.launches
     _sync(dev)
+    linreg_reductions.launches = 0
     t0 = time.perf_counter()
-    draws, accept, _ = run(21, *nuts)
+    draws, accept, _, extra = run(seeds[0], *nuts)
     _sync(dev)
     wall = time.perf_counter() - t0
-    replays = multichain_sample.graph_replays
-    samples = unravel(draws)
-    derived = {"intercept": samples["intercept"], "slope": samples["slope"],
-               "sigma": torch.exp(samples["log_sigma"])}
-    identified = {"slope": samples["slope"], "log_sigma": samples["log_sigma"],
-                  "shard_intercepts": samples["intercept"][..., None] + samples["offsets"]}
-    rhat = max(float(r.max()) for r in pft.samplers.split_rhat(identified).values())
-    raw_rhat = {k: float(r.max()) for k, r in pft.samplers.split_rhat(samples).items()}
-    ess = pft.samplers.effective_sample_size(derived)
-    ref = nuts_line.get("recovered", {})
-    moments, moments_ok = {}, bool(ref)
-    for k, d in derived.items():
-        mean, sd = float(d.double().mean()), float(d.double().std())
-        mcse = sd / float(ess[k]) ** 0.5
-        r = ref.get(k, {})
-        combined = math.sqrt(mcse**2 + r.get("mcse", float("inf")) ** 2)
-        within = abs(mean - r.get("mean", float("inf"))) <= 4 * combined
-        moments[k] = {"mean": mean, "sd": sd, "ess": float(ess[k]), "mcse": mcse,
-                      "nuts_large_mean": r.get("mean"), "nuts_large_mcse": r.get("mcse"),
-                      "within_4_combined_mcse": within}
-        moments_ok &= within
-    finite = bool(torch.isfinite(draws).all())
+    host_launches = linreg_reductions.launches
+    main = readings(draws, accept)
+    replays = extra.get("graph_replays", 0)
+    if cuda:
+        flat_start = ravel(start)[0]
+        graph = _graph_check(extra["graph"], lg, _graph_points(flat_start, X.shape[0], dev, 41),
+                             expected=per_call, timed=0)
+        launches = _graphed_launches(graph, host_launches, replays)
+        graph_ok = graph["launch_ok"] and graph["replay_bits_equal_eager"] and replays > 0
+    else:
+        graph, launches, graph_ok = {}, host_launches, True  # no graph off the card
+    del extra
+    others = {}
+    for seed in seeds[1:]:
+        t1 = time.perf_counter()
+        d, a, _, _ = run(seed, *nuts)
+        others[str(seed)] = {**readings(d, a), "wall_s": time.perf_counter() - t1}
     rerun_bits = torch.equal(run(5, *rerun)[0], run(5, *rerun)[0])
     out["nuts"] = {"chains": MULTICHAIN_MESH["chains"], "warmup": nuts[0], "draws": nuts[1],
-                   "dense_mass": True, "max_depth": MULTICHAIN_MAX_DEPTH,
+                   "dense_mass": True, "max_depth": MULTICHAIN_MAX_DEPTH, "seed": seeds[0],
                    "start": "generating parameters + 0.5 N(0, 1)", "cuda_graph": cuda,
                    "wall_s": wall, "graph_replays": replays,
                    "ms_per_grad_eval": wall * 1e3 / max(replays, 1),
-                   "accept_prob": float(accept.mean()),
-                   "max_split_rhat_identified": rhat, "split_rhat_raw": raw_rhat,
-                   "moments": moments, "finite": finite,
+                   "kernel_launches_per_eager_call": per_call, "kernel_launches": launches,
+                   "graph": graph, **main, "other_seeds": others,
                    "rerun": {"warmup": rerun[0], "draws": rerun[1], "bits_equal": rerun_bits}}
+    runs = [main, *others.values()]
 
     # Chain and temperature sharding against the same runs unsharded.
     # The sample and chees runs go through the kernel; the launches of
@@ -5166,30 +5233,31 @@ def phase_multichain(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], nuts=MULTICHAIN
     _, fmodel, _, posterior = _flagship(FLAGSHIP[1], dev)
     flat_logp, fflat0, funravel, _ = make_flat_logp_and_grad(posterior, fmodel.init_params())
     batch_lg = make_batch_logp_and_grad(flat_logp, funravel)
-    chains = MULTICHAIN_SAMPLE["num_chains"]
-    graphs = {"unsharded": _graph_check(batch_lg, fflat0, chains, dev, 31, timed=5),
-              "sharded": _graph_check(sharding.map_blocks(batch_lg), fflat0, chains, dev, 31,
-                                      timed=5)}
-    sharded_runs, launches = {}, 0
-    for name, sh in (("unsharded", None), ("sharded", sharding)):
+    points = _graph_points(fflat0, MULTICHAIN_SAMPLE["num_chains"], dev, 31)
+    sharded_runs, graphs = {}, {}
+    # One launch per block of chains.
+    for name, sh, per_replay in (("unsharded", None, 1), ("sharded", sharding, 2)):
         linreg_reductions.launches = 0
         gen = torch.Generator(device=card).manual_seed(13)
         t0 = time.perf_counter()
         res = pft.samplers.sample(posterior, fmodel.init_params(), generator=gen,
                                   cuda_graph=cuda, chain_sharding=sh, **MULTICHAIN_SAMPLE)
         _sync(dev)
-        replays = res.extra["graph_replays"] if cuda else 0
-        n = (_graphed_launches(graphs[name], linreg_reductions.launches, replays) if cuda
-             else linreg_reductions.launches)
+        wall = time.perf_counter() - t0
+        host_launches = linreg_reductions.launches  # before the check's eager calls
+        if cuda:
+            replays = res.extra["graph_replays"]
+            graphs[name] = _graph_check(res.extra["graph"],
+                                        batch_lg if sh is None else sh.map_blocks(batch_lg),
+                                        points, expected=per_replay, timed=5)
+            n = _graphed_launches(graphs[name], host_launches, replays)
+            graph_ok &= graphs[name]["launch_ok"] and graphs[name]["replay_bits_equal_eager"]
+        else:
+            replays, n, graphs[name] = 0, host_launches, {}
         launches += n
         sharded_runs[name] = res.samples
-        graphs[name].update(wall_s=time.perf_counter() - t0, graph_replays=replays,
-                            kernel_launches=n)
+        graphs[name].update(wall_s=wall, graph_replays=replays, kernel_launches=n)
     ok_sample, sample_cmp = _bits_or_moments(sharded_runs["unsharded"], sharded_runs["sharded"])
-    expected_per_replay = {"unsharded": 1, "sharded": 2}  # one launch per block of chains
-    graph_ok = (not cuda) or all(
-        graphs[k]["kernel_launches_per_replay"] == expected_per_replay[k]
-        and graphs[k]["replay_bits_equal_eager"] for k in graphs)
     chees_runs = {}
     for name, sh in (("unsharded", None), ("sharded", sharding)):
         linreg_reductions.launches = 0
@@ -5214,10 +5282,11 @@ def phase_multichain(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], nuts=MULTICHAIN
                **pt_cmp},
     }
     out["kernel_launches"] = launches
-    out["gates"] = {"values": ok_plain and ok64, "rhat": rhat < 1.05,
-                    "moments": moments_ok and finite, "rerun_bits": rerun_bits,
-                    "graph_replays": (not cuda) or out["nuts"]["graph_replays"] > 0,
-                    "sample_sharding": ok_sample and graph_ok, "chees_sharding": ok_chees,
+    out["gates"] = {"values": ok_plain and ok64,
+                    "rhat": all(r["max_split_rhat_identified"] < 1.05 for r in runs),
+                    "moments": all(r["moments_ok"] and r["finite"] for r in runs),
+                    "rerun_bits": rerun_bits, "graph_launches": graph_ok,
+                    "sample_sharding": ok_sample, "chees_sharding": ok_chees,
                     "pt_sharding": ok_pt}
     return all(out["gates"].values()), out
 
@@ -5280,13 +5349,14 @@ def phase_seq(dev="cuda", lgssm=LGSSM, slots=SEQ_SLOTS, draws=SEQ_DRAWS,
         gates[name] = ok_card and ok64 and sm_ok and fc_ok
         cases[name] = (model, c, sm)
     # Time and launches per logp+grad, with the mask (the same work as
-    # without it), with and without the mesh.
+    # without it), with and without the mesh; both ran in the gates
+    # above, so one warm-up call each.
     model = cases["mask"][0]
     mt = torch.as_tensor(mask, device=card)
     plain = lambda: value_and_grad(lambda q: ss.kalman_logp_parallel(q, y, mt), params)
     out["ms_per_logp_and_grad"] = {
-        "mesh": _ms_per_eval(lambda: model.logp_and_grad(params), dev, SEQ_TIMED_EVALS),
-        "no_mesh": _ms_per_eval(plain, dev, SEQ_TIMED_EVALS)}
+        "mesh": _ms_per_eval(lambda: model.logp_and_grad(params), dev, SEQ_TIMED_EVALS, warm=1),
+        "no_mesh": _ms_per_eval(plain, dev, SEQ_TIMED_EVALS, warm=1)}
     out["cuda_launches_per_logp_and_grad"] = {
         "mesh": _launches(lambda: model.logp_and_grad(params), dev, 1),
         "no_mesh": _launches(plain, dev, 1)}
@@ -5374,7 +5444,13 @@ def main() -> int:
                              "checkpoint and demos only; slice11: device, build, nuts_large, "
                              "optim and mesh only; slice12: device, build, nuts_large, "
                              "multichain and seq only")
+    parser.add_argument("--multichain-seeds", default=",".join(map(str, MULTICHAIN_SEEDS)),
+                        type=lambda v: tuple(int(x) for x in v.split(",")),
+                        help="comma-separated seeds of the multichain phase's NUTS runs, "
+                             "each gated (default: %(default)s); each seed after the first "
+                             "adds 30 s to the phase's expected seconds")
     args = parser.parse_args()
+    PHASE_EXPECTED_S["multichain"] += 30 * (len(args.multichain_seeds) - 1)
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -5440,7 +5516,8 @@ def main() -> int:
         ("demos", phase_demos),
         ("optim", phase_optim),
         ("mesh", lambda: phase_mesh(lines.get("nuts_large", {}))),
-        ("multichain", lambda: phase_multichain(lines.get("nuts_large", {}))),
+        ("multichain", lambda: phase_multichain(lines.get("nuts_large", {}),
+                                                 seeds=args.multichain_seeds)),
         ("seq", phase_seq),
     ]
     if args.only == "kernels":

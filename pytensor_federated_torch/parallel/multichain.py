@@ -157,6 +157,7 @@ def multichain_sample(
     shards_axis: str = SHARDS_AXIS,
     jitter: float = 0.5,
     cuda_graph: bool = False,
+    return_extra: bool = False,
 ):
     """Run C independent chains over S-sharded data on the 2-D mesh.
 
@@ -173,8 +174,11 @@ def multichain_sample(
     With ``num_warmup=0`` the given ``step_size`` and a unit mass are
     used.  ``kernel`` is ``"nuts"`` or ``"hmc"``.  ``cuda_graph=True``
     (CUDA only) replays the chain batch's value+grad from a CUDA graph
-    (:func:`..samplers.mcmc.graph_batch_logp_and_grad`); the number of
-    replays is then ``multichain_sample.graph_replays``.
+    (:func:`..samplers.mcmc.graph_batch_logp_and_grad`).
+    ``return_extra=True`` (port-only) appends a fourth element, a dict
+    like :class:`..samplers.mcmc.SampleResult`'s ``extra``: with
+    ``cuda_graph=True``, ``graph_replays`` (the batched evaluations
+    replayed) and ``graph`` (the replay itself); else empty.
 
     This evaluates the caller's ``per_shard_logp`` over each slot's
     block; it adds no route of its own to a kernel."""
@@ -208,8 +212,7 @@ def multichain_sample(
         state, info = kernel_step(state, generator, step_size=eps, inv_mass=inv_mass)
         draws.append(state.x)
         accept.append(info.accept_prob)
-    multichain_sample.graph_replays = lg.calls if cuda_graph else 0
-    return torch.stack(draws, dim=1), torch.stack(accept, dim=1), unravel
-
-
-multichain_sample.graph_replays = 0
+    out = (torch.stack(draws, dim=1), torch.stack(accept, dim=1), unravel)
+    if return_extra:
+        return out + ({"graph_replays": lg.calls, "graph": lg} if cuda_graph else {},)
+    return out

@@ -190,8 +190,9 @@ def chees_sample(
     """Cross-chain adaptive HMC; more chains = better adaptation.
 
     ``max_leapfrogs`` bounds the per-iteration trajectory.  Every chain
-    runs in one batch on the device of ``init_params``; ``generator``
-    (on that device) draws the initial jitter, then every iteration's
+    runs in one batch on the device of ``init_params`` (with
+    ``chain_sharding``, on the first slot's device); ``generator`` (on
+    that device) draws the initial jitter, then every iteration's
     momenta and accept uniforms for all chains at once.
 
     ``chain_sharding`` (a :class:`..parallel.mesh.NamedSharding`)
@@ -203,6 +204,9 @@ def chees_sample(
     divisible by the mesh axis."""
     flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(logp_fn, init_params)
     lg = make_batch_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
+    if chain_sharding is not None:
+        flat_init = flat_init.to(chain_sharding.devices[0])
+        lg = chain_sharding.map_blocks(lg)
     dim, dtype, device = flat_init.shape[0], flat_init.dtype, flat_init.device
     C = num_chains
 
@@ -210,9 +214,6 @@ def chees_sample(
         (C, dim), generator=generator, dtype=dtype, device=device
     )
     x = place_with_sharding(x, chain_sharding, axis_desc=f"num_chains={C}")
-    if chain_sharding is not None:
-        lg = chain_sharding.map_blocks(lg)
-        device = x.device
     logp, grad = lg(x)
 
     def draws(x, logp):

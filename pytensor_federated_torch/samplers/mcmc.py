@@ -352,20 +352,26 @@ def sample(
     ``cuda_graph=True`` (NUTS and HMC on CUDA) captures the chain batch's
     value+grad once in a CUDA graph and replays it for every evaluation
     (:func:`graph_batch_logp_and_grad`): the same evaluations with their
-    host dispatch gone; ``result.extra`` then
-    holds ``{"graph_replays": n}``, the batched evaluations replayed.
+    host dispatch gone; ``result.extra`` then holds ``graph_replays``,
+    the batched evaluations replayed, and ``graph``, the replay itself
+    (it keeps the graph's memory while the result lives; replaying it
+    again, on inputs of the chain batch's shape, re-runs the same
+    launches).
 
     ``chain_sharding`` (a :class:`..parallel.mesh.NamedSharding`, e.g.
     ``NamedSharding(make_mesh({"chains": 2}, devices=...), "chains")``)
     partitions the chain batch over the axis's slots: every batched
     evaluation sends slot ``j``'s block of chains to its device and
     evaluates it there (one vmapped call per slot), and the loop, its
-    random draws and the chains' state stay on the first slot's device.
+    random draws (``generator`` lives there) and the chains' state stay
+    on the first slot's device, wherever ``init_params`` lives.
     ``num_chains`` must be divisible by the axis.  The draws equal an
     unsharded run's wherever a chain's evaluation gives the same bits
     in a block as in the whole batch.
     """
     flat_logp, flat_init, unravel, _ = make_flat_logp_and_grad(logp_fn, init_params)
+    if chain_sharding is not None:
+        flat_init = flat_init.to(chain_sharding.devices[0])
     dtype, device = flat_init.dtype, flat_init.device
     init_flat = flat_init.expand(num_chains, -1)
     if jitter:
@@ -375,7 +381,6 @@ def sample(
     init_flat = place_with_sharding(
         init_flat, chain_sharding, axis_desc=f"num_chains={num_chains}"
     )
-    device = init_flat.device
     if kernel == "metropolis":
         logp = torch.func.vmap(flat_logp)
         if chain_sharding is not None:
@@ -425,7 +430,7 @@ def sample(
             stats={k: torch.stack(v, dim=1) for k, v in stats.items()},
             step_size=warm.step_size,
             inv_mass=warm.inv_mass,
-            extra={"graph_replays": lg.calls} if cuda_graph else None,
+            extra={"graph_replays": lg.calls, "graph": lg} if cuda_graph else None,
         )
         if _tspans.enabled():
             _record_run(kernel, device, t0, num_chains, num_warmup, num_samples)

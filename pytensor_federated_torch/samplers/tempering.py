@@ -163,7 +163,8 @@ def pt_sample(
     ``cuda_graph=True`` (CUDA only) replays the replica block's value+grad
     from a CUDA graph, as :func:`.mcmc.sample`'s does: the same draws
     without the evaluation's host dispatch; ``extra["graph_replays"]``
-    then counts the replayed evaluations.
+    then counts the replayed evaluations and ``extra["graph"]`` is the
+    replay itself.
     """
     if num_temps < 2:
         raise ValueError(
@@ -188,6 +189,7 @@ def pt_sample(
     )
     lg = make_batch_logp_and_grad(flat_logp, unravel, logp_and_grad_fn)
     if temp_sharding is not None:
+        flat_init = flat_init.to(temp_sharding.devices[0])
         lg = temp_sharding.map_blocks(lg)
     C, K, dim = num_chains, num_temps, flat_init.shape[0]
     dtype, device = flat_init.dtype, flat_init.device
@@ -209,7 +211,6 @@ def pt_sample(
     x = flat_init + jitter * torch.randn((C, K, dim), generator=generator, **kw)
     if temp_sharding is not None:
         x = place_with_sharding(x[0], temp_sharding, axis_desc=f"num_temps={num_temps}")[None]
-        flat_init = flat_init.to(x.device)
     if cuda_graph:
         lg = graph_batch_logp_and_grad(lg, x.reshape(C * K, dim))
     u, g = lg_block(x)
@@ -302,6 +303,6 @@ def pt_sample(
         extra={
             "swap_rate_per_pair": per_pair,
             "betas": betas_of(log_rho) if adapt_ladder else betas0.clone(),
-            **({"graph_replays": lg.calls} if cuda_graph else {}),
+            **({"graph_replays": lg.calls, "graph": lg} if cuda_graph else {}),
         },
     )

@@ -1122,9 +1122,10 @@ def test_multichain_on_the_card_matches_float64_on_the_cpu():
     runs = [multichain_sample(model.fed.per_shard_logp, model.fed.data, model.init_params(),
                               mesh=mesh, generator=torch.Generator(dev).manual_seed(3),
                               num_samples=10, num_warmup=10, prior_logp=model.prior_logp,
-                              dense_mass=True, cuda_graph=True)[0] for _ in range(2)]
-    assert torch.equal(runs[0], runs[1]) and bool(torch.isfinite(runs[0]).all())
-    assert multichain_sample.graph_replays > 0
+                              dense_mass=True, cuda_graph=True, return_extra=True)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and bool(torch.isfinite(runs[0][0]).all())
+    assert runs[0][3]["graph_replays"] == runs[1][3]["graph_replays"] > 0
 
 
 @pytest.mark.gpu
@@ -1150,3 +1151,42 @@ def test_pt_sample_from_a_cuda_graph_gives_the_eager_draws():
     assert torch.equal(eager.extra["swap_rate_per_pair"], graphed.extra["swap_rate_per_pair"])
     assert graphed.extra["graph_replays"] == 2 + kw["num_leapfrog"] * (kw["num_warmup"]
                                                                        + kw["num_samples"])
+
+
+@pytest.mark.gpu
+def test_sharded_samplers_run_on_the_mesh_when_the_init_lives_elsewhere():
+    """``sample``/``chees_sample(chain_sharding=)`` and
+    ``pt_sample(temp_sharding=)`` with ``init_params`` on the CPU and the
+    mesh on the card: the state, the ladder and every draw live on the
+    mesh's first device (where the generator is), and the draws equal
+    those of the same run with the init on the card."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.parallel.mesh import NamedSharding
+    from pytensor_federated_torch.samplers.chees import chees_sample
+    from pytensor_federated_torch.samplers.tempering import pt_sample
+
+    dev = _cuda()
+    chains = NamedSharding(pft.make_mesh({"chains": 2}, devices=[dev] * 2), "chains")
+    temps = NamedSharding(pft.make_mesh({"temps": 4}, devices=[dev] * 4), "temps")
+
+    def target(params):
+        x = params["x"]
+        return torch.logaddexp(-0.5 * torch.sum(((x + 2.0) / 0.5) ** 2),
+                               -0.5 * torch.sum(((x - 2.0) / 0.5) ** 2))
+
+    runs = {
+        "sample": lambda init: pft.samplers.sample(
+            target, init, generator=torch.Generator(dev).manual_seed(1), num_chains=4,
+            num_warmup=10, num_samples=10, chain_sharding=chains),
+        "chees": lambda init: chees_sample(
+            target, init, generator=torch.Generator(dev).manual_seed(2), num_chains=4,
+            num_warmup=5, num_samples=5, max_leapfrogs=8, chain_sharding=chains),
+        "pt": lambda init: pt_sample(
+            target, init, generator=torch.Generator(dev).manual_seed(3), num_temps=8,
+            num_warmup=10, num_samples=10, num_leapfrog=4, temp_sharding=temps),
+    }
+    for name, run in runs.items():
+        on_cpu, on_card = run({"x": torch.zeros(3)}), run({"x": torch.zeros(3, device=dev)})
+        assert on_cpu.samples["x"].device.type == "cuda", name
+        assert on_cpu.step_size.device.type == "cuda", name
+        assert torch.equal(on_cpu.samples["x"], on_card.samples["x"]), name
