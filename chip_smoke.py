@@ -17,6 +17,8 @@
     python3 chip_smoke.py --only slice12   # device, build, nuts_large, multichain, seq
     python3 chip_smoke.py --only slice12 --multichain-seeds 21,22,23,24,25
                                            # the same, the multichain NUTS on 5 seeds
+    python3 chip_smoke.py --only slice13   # device, build, nuts_large, zero,
+                                           # parallel_axes, multihost, elastic
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -335,8 +337,50 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    and not, and ``ring_all_pairs_sum`` against dense float64 on the CPU.
    Both phases show the partition and the cross-slot work on one card,
    not concurrency across cards.
+30. ``zero`` — ``ZeroShardedLogpGrad`` on ``{"shards": 4}`` of the card:
+   the flagship's data term at 8 x 131,072 through the kernel (the
+   kernel's shard vmap rule: one launch per slot and evaluation) and
+   config 7's wide logistic (8 x 4,096 x 512; the flat vector's 513
+   entries pad to 516).  Gates: the scattered gradient's value equals
+   ``FederatedLogp(mesh=same)``'s bit for bit and its gradient at float32
+   rounding, and both hold against float64 on the CPU (the model gates'
+   tolerances); each slice lies on its slot's device; 50 ``sgd_steps``
+   and 50 ``adam_steps`` match the same loops on the replicated gradient;
+   kernel launches per step equal the slot count.  ms per step, sharded
+   and replicated.
+31. ``parallel_axes`` — ``TensorParallelLogistic`` at config 7's rows
+   pooled (32,768 x 512) on ``{"tp": 4}`` and ``{"shards": 2, "tp": 4}``;
+   ``ExpertShardedMixture`` at 65,536 observations, K = 16, on
+   ``{"experts": 4}``; ``ulysses_attention`` at (T, H, d) = (4,096, 8,
+   64) on ``{"seq": 4}``, causal and not.  Each against its unsharded
+   form on the card and against float64 on the CPU (attention: one head
+   per mode), values and gradients; ms (and CUDA launches) per
+   logp+grad (attention: per forward+backward) with and without the
+   mesh.
+32. ``multihost`` — two gloo ranks forked from the fork server, each
+   driving 4 slots of the card, join one ``torch.distributed`` world
+   (``initialize_multihost``) and evaluate the flagship at 8 x 131,072
+   through the kernel over one ``make_multihost_mesh`` of 8 slots.
+   Gates: both ranks' logp bits equal, and equal to the single-process
+   8-slot mesh's; gradients equal the single-process mesh's and the
+   unsharded one's (not x2); one kernel launch per local slot per
+   evaluation; rank 1 is SIGKILLed in its work loop and rank 0 detects
+   the death through its heartbeat probes within their limit, remeshes
+   to its own 4 slots and reproduces the value.  Two ranks on one card
+   show the partition and the cross-process sum, not NCCL or
+   concurrency across cards.
+33. ``elastic`` — ``elastic_sample`` over the flagship through the kernel
+   on ``{"shards": 4}`` of the card at the checkpoint phase's size (1 x
+   (50 + 75), chunks of 25, depth 3), a failure injected once chunk 0 is
+   saved.  Gates: rebuilt over the same slots (the default remesh), the
+   draws equal an uninterrupted run's bit for bit; shrunk to 2 slots by
+   an ``on_failure`` policy (from a copy of that run's checkpoint after
+   chunk 0), the first chunk's draws are unchanged and the rest finite;
+   the ``sampler.segment_failed``, ``mesh.remesh`` and
+   ``sampler.recovered`` flight events; one kernel launch per slot and
+   evaluation.
 
-Phases 10-19, 27 and 29 launch no kernel of the port: the JAX package computes
+Phases 10-19, 27, 29 and 31 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Every phase runs under a deadline of three times its expected seconds
@@ -362,7 +406,8 @@ with ``--only slice7`` the families and model_check phases only, with
 phase (the reference posterior) and phases 20-25, with ``--only slice11``
 the nuts_large phase (the mesh phase's reference posterior) and phases
 26-27, with ``--only slice12`` the nuts_large phase (the multichain
-phase's reference posterior) and phases 28-29;
+phase's reference posterior) and phases 28-29, with ``--only slice13``
+the nuts_large phase and phases 30-33;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -504,6 +549,7 @@ PHASE_EXPECTED_S = {
     "tempering": 25, "families": 10, "model_check": 80,
     "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 12, "demos": 40,
     "optim": 15, "mesh": 50, "multichain": 50, "seq": 15,
+    "zero": 5, "parallel_axes": 3, "multihost": 12, "elastic": 20,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -5428,11 +5474,673 @@ def phase_seq(dev="cuda", lgssm=LGSSM, slots=SEQ_SLOTS, draws=SEQ_DRAWS,
     return all(gates.values()), out
 
 
+# Slice 13: the rest of the parallel axes (ZeRO, tensor, expert,
+# Ulysses), the multi-process mesh and elastic sampling.  Meshes of
+# [cuda:0] * n show the partition and the cross-slot work on one card;
+# the multihost phase's two gloo ranks share the card too, so it shows
+# the partition and the cross-process sum, not NCCL or concurrency
+# across cards.
+#
+# zero: ZeroShardedLogpGrad on {"shards": 4}: the flagship's data term at
+# 8 x 131,072 through the kernel (one launch per slot and evaluation)
+# and config 7's wide logistic (8 x 4,096 x 512: dim 513 pads to 516);
+# the scattered gradient against FederatedLogp(mesh=same) and against
+# float64 on the CPU, then ZERO_STEPS SGD and Adam steps against the
+# same loops on the replicated gradient.  The flagship's SGD rate sits
+# below 2 / the curvature of its data term at the origin (~3e7 in
+# log_sigma), the wide model's below 2 / ~1e4.
+SLICE13 = ("zero", "parallel_axes", "multihost", "elastic")
+ZERO_SLOTS = 4
+ZERO_STEPS = 50
+ZERO_SGD_LR = {"flagship": 1e-8, "wide": 1e-5}
+ZERO_ADAM_LR = 0.01
+# The sharded and replicated loops take the same steps from gradients
+# summed in different orders (the slots' slices in slot order; autograd's
+# accumulation): float32 rounding, carried over the steps.
+ZERO_LOOP_RTOL, ZERO_LOOP_ATOL_OF_MAX = 1e-4, 1e-5
+ZERO_GRAD_RTOL, ZERO_GRAD_ATOL_OF_MAX = 1e-6, 1e-6  # against FederatedLogp, one evaluation
+# parallel_axes: TP at config 7's rows pooled (32,768 x 512) on {"tp": 4}
+# and {"shards": 2, "tp": 4}; EP at 65,536 observations, K = 16 on
+# {"experts": 4}; Ulysses at (T, H, d) = (4,096, 8, 64) on {"seq": 4},
+# causal and not, its float64 check on the CPU on one head per mode (a
+# head's output and gradient depend on that head alone; all 8 in float64
+# cost ~1 GiB and tens of seconds of CPU).
+AXES_SLOTS = 4
+AXES_EP = dict(n_obs=65_536, k=16, seed=23)
+AXES_ULYSSES = (4096, 8, 64)
+AXES_F64_HEADS = {False: 1, True: 6}  # causal -> the head checked in float64
+AXES_TIMED_EVALS = 10
+AXES_ATTENTION_ATOL = 1e-4  # float32 on the card against float64 (SEQ_ATTENTION_ATOL)
+# multihost: two gloo ranks forked from the fork server, each driving 4
+# slots of cuda:0, the flagship at 8 x 131,072 through the kernel; rank
+# 1 is SIGKILLed in its work loop and rank 0 probes it.  A sweep of
+# detect_dead_peers fails a dead port in 2 x retry_wait; the limit is two
+# whole sweeps of live-peer timeouts.
+MULTIHOST_RANKS, MULTIHOST_SLOTS = 2, 4
+MULTIHOST_TIMED_EVALS = 5
+MULTIHOST_PROBE = dict(timeout=0.5, retries=3, retry_wait=0.2)
+MULTIHOST_DETECT_LIMIT_S = 2 * (3 * 0.5 + 2 * 0.2)
+MULTIHOST_WAIT_S = 90.0  # any one message from a rank
+# elastic: elastic_sample at the checkpoint phase's size with a failure
+# after chunk 0: rebuilt over the same 4 slots (default remesh policy),
+# and shrunk to 2 slots by an on_failure policy, resumed from a copy of
+# the first run's checkpoint after chunk 0.
+ELASTIC_SLOTS, ELASTIC_SHRUNK = 4, 2
+
+
+def _kernel_flagship(card, n_obs):
+    """The flagship's data tree in the kernel's per-shard form, on ``card``."""
+    import pytensor_federated_torch as pft
+
+    data, _ = pft.generate_node_data(8, n_obs=n_obs, seed=123, device=card)
+    (x, y), mask = data.tree()
+    return ((x, y), mask, torch.arange(8, device=card))
+
+
+def _err_over_tol(got, want, rtol, atol_of_max):
+    """The largest error of a tree of tensors against another (leaves
+    by key), as a share of ``rtol |want| + atol_of_max max|want|`` of
+    its leaf (<= 1 passes)."""
+    worst = 0.0
+    for k in want:
+        g = torch.as_tensor(got[k]).detach().cpu().double()
+        w = torch.as_tensor(want[k]).detach().cpu().double()
+        tol = rtol * w.abs() + atol_of_max * float(w.abs().max())
+        worst = max(worst, float(((g - w).abs() / tol.clamp_min(1e-30)).max()))
+    return worst
+
+
+def _replicated_loop(fed, params, lr, steps, adam):
+    """SGD (``p + lr g``) or Adam (``scale_by_adam``, float32 moments, then
+    ``p + lr u``) on the replicated gradient of ``fed.logp``: the loop the
+    sharded one must match."""
+    from pytensor_federated_torch.ppl.elbo import adam_updates
+    from pytensor_federated_torch.samplers.util import ravel
+    from pytensor_federated_torch.utils import value_and_grad
+
+    vec, unravel = ravel(params)
+    vec = vec.detach()
+    lr = torch.tensor(lr, dtype=torch.float32, device=vec.device)
+    mu = nu = torch.zeros(vec.shape, dtype=torch.float32, device=vec.device)
+    for t in range(1, steps + 1):
+        _, g = value_and_grad(fed.logp, unravel(vec))
+        g = ravel(g)[0]
+        if adam:
+            (u,), (mu,), (nu,) = adam_updates([g.float()], [mu], [nu], t, -1.0,
+                                              correction_dtype=vec.dtype)
+            g = u
+        vec = (vec + lr * g).to(vec.dtype)
+    return unravel(vec)
+
+
+def _zero_case(name, per_shard, tree, params, tree64, params64, card, lr, slots=ZERO_SLOTS,
+               steps=ZERO_STEPS):
+    """One ZeRO case: the scattered gradient against FederatedLogp(mesh=
+    same) on the card and against float64 on the CPU; SGD and Adam loops
+    against the replicated ones; kernel launches per step; ms per step."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.utils import value_and_grad
+
+    _sync(card)
+    case_start = linreg_reductions.launches
+    mesh = pft.make_mesh({"shards": slots}, devices=[card] * slots)
+    z = pft.parallel.ZeroShardedLogpGrad(per_shard, tree, params, mesh=mesh)
+    fed = pft.FederatedLogp(per_shard, tree, mesh=mesh)
+    cpu4 = pft.make_mesh({"shards": slots}, devices=["cpu"] * slots)
+    z64 = pft.parallel.ZeroShardedLogpGrad(per_shard, tree64, params64, mesh=cpu4)
+    sg = z.logp_and_scattered_grad(params)
+    g = z.gather_grad(sg)
+    v_ref, g_ref = value_and_grad(fed.logp, params)
+    sg64 = z64.logp_and_scattered_grad(params64)
+    g64 = z64.gather_grad(sg64)
+    value_bits_equal = torch.equal(sg.logp, v_ref)
+    grad_over_tol = _err_over_tol(g, g_ref, ZERO_GRAD_RTOL, ZERO_GRAD_ATOL_OF_MAX)
+    v64 = float(sg64.logp)
+    rel64 = abs(float(sg.logp) - v64) / abs(v64)
+    worst64 = _err_over_tol(g, g64, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX)
+    slices_on_slots = [s.device for s in sg.grad_slices] == mesh.slot_devices("shards")
+    loops, launches = {}, {}
+    for kind, rate in (("sgd", lr), ("adam", ZERO_ADAM_LR)):
+        run = z.adam_steps if kind == "adam" else z.sgd_steps
+        _sync(card)
+        loop_start = linreg_reductions.launches
+        t0 = time.perf_counter()
+        final, trace = run(params, learning_rate=rate, num_steps=steps)
+        _sync(card)
+        sharded_s = time.perf_counter() - t0
+        launches[kind] = linreg_reductions.launches - loop_start
+        t0 = time.perf_counter()
+        want = _replicated_loop(fed, params, rate, steps, adam=kind == "adam")
+        _sync(card)
+        replicated_s = time.perf_counter() - t0
+        loops[kind] = {
+            "learning_rate": rate, "steps": steps, "err_over_tol": _err_over_tol(
+                final, want, ZERO_LOOP_RTOL, ZERO_LOOP_ATOL_OF_MAX),
+            "logp_first": float(trace[0]), "logp_last": float(trace[-1]),
+            "finite": all(bool(torch.isfinite(v).all()) for v in final.values()),
+            "ms_per_step": sharded_s * 1e3 / steps,
+            "replicated_ms_per_step": replicated_s * 1e3 / steps,
+        }
+    _sync(card)
+    # Every launch of the case: the gate evaluations, both sharded loops
+    # and the replicated loops they are held against.
+    case_launches = linreg_reductions.launches - case_start
+    kernel = per_shard.__name__ == "linreg_shard_logp"
+    gates = {
+        "value_bits_equal_federated_logp": value_bits_equal,
+        "grad_against_federated_logp": grad_over_tol <= 1.0,
+        "against_f64": rel64 <= MODEL_VALUE_RTOL and worst64 <= 1.0,
+        "slices_on_their_slots": slices_on_slots,
+        "padding": z.padded_dim == -(-z.dim // slots) * slots,
+        "loops_match_replicated": all(l["err_over_tol"] <= 1.0 and l["finite"]
+                                      for l in loops.values()),
+        "launches_per_step_equal_slots": (
+            all(n == slots * steps for n in launches.values()) if kernel and card.type == "cuda"
+            else True),
+    }
+    return all(gates.values()), {
+        "case": name, "dim": z.dim, "padded_dim": z.padded_dim, "slice_len": z.slice_len,
+        "logp": float(sg.logp), "grad_err_over_tol": grad_over_tol,
+        "f64": {"value_rel_err": rel64, "grad_err_over_tol": worst64},
+        "loops": loops, "kernel_launches": case_launches if kernel else 0,
+        "launches": launches, "gates": gates,
+    }
+
+
+def phase_zero(dev="cuda", n_obs=LARGE_PATH[1], wide=WIDE, steps=ZERO_STEPS):
+    """Slice 13, ZeRO: the scattered gradient and the sharded SGD / Adam
+    loops on {"shards": 4} of the card, the flagship through the kernel
+    and config 7's wide logistic on the plain per-shard path."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_shard_logp
+    from pytensor_federated_torch.utils import tree_map
+
+    card = torch.device("cuda", 0) if torch.device(dev).type == "cuda" else torch.device("cpu")
+    tree = _kernel_flagship(card, n_obs)
+    tree64 = tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), tree)
+    z0 = lambda dt, d: torch.zeros((), dtype=dt, device=d)
+    p = {"intercept": z0(torch.float32, card), "slope": z0(torch.float32, card),
+         "log_sigma": z0(torch.float32, card),
+         "offsets": torch.zeros(8, dtype=torch.float32, device=card)}
+    p64 = tree_map(lambda t: t.cpu().double(), p)
+    ok1, flagship = _zero_case("flagship", linreg_shard_logp, tree, p, tree64, p64, card,
+                               ZERO_SGD_LR["flagship"], steps=steps)
+    data, _ = pft.generate_logistic_data(**wide, device=card)
+    model = pft.FederatedLogisticRegression(data)
+    model64 = pft.FederatedLogisticRegression(_as_f64_cpu(data))
+    wp = model.init_params()
+    ok2, wide_case = _zero_case("wide_logistic", model.fed.per_shard_logp, model.fed.data, wp,
+                                model64.fed.data, tree_map(lambda t: t.cpu().double(), wp), card,
+                                ZERO_SGD_LR["wide"], steps=steps)
+    out = {"phase": "zero", "mesh": {"shards": ZERO_SLOTS},
+           "devices": [str(card)] * ZERO_SLOTS, "cases": [flagship, wide_case],
+           "kernel_launches": flagship["kernel_launches"]}
+    out["gates"] = {f"{c['case']}.{k}": v for c in out["cases"] for k, v in c["gates"].items()}
+    return ok1 and ok2, out
+
+
+def _attention_f64_head(q, k, v, head, causal):
+    """One head's attention output and d sum(out^2)/dq in float64 on the CPU."""
+    from pytensor_federated_torch.parallel.ulysses import _dense_heads_attention
+
+    qs = [t[:, head:head + 1].detach().cpu().double() for t in (q, k, v)]
+    qs[0].requires_grad_(True)
+    out = _dense_heads_attention(*qs, causal=causal)
+    (gq,) = torch.autograd.grad(torch.sum(out**2), qs[0])
+    return out.detach(), gq
+
+
+def phase_parallel_axes(dev="cuda", wide=WIDE, ep=AXES_EP, ulysses=AXES_ULYSSES,
+                        reps=AXES_TIMED_EVALS):
+    """Slice 13, the tensor, expert and Ulysses axes on meshes of the card:
+    each against its unsharded form on the card and float64 on the CPU;
+    ms per logp+grad (attention: per forward+backward) with and without
+    the mesh."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.parallel.expert import generate_expert_mixture_data
+    from pytensor_federated_torch.parallel.ulysses import _dense_heads_attention
+    from pytensor_federated_torch.utils import tree_map
+
+    cuda = torch.device(dev).type == "cuda"
+    card = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    mesh = lambda shape: pft.make_mesh(shape, devices=[card] * math.prod(shape.values()))
+    flat = lambda x: torch.cat([b.reshape(-1).to(card) for b in x]) if isinstance(
+        x, tuple) else x
+    out, gates = {"phase": "parallel_axes"}, {}
+
+    def against(model, plain, model64, params, whole):
+        """Value and gradient (blocks concatenated) on the mesh against
+        the unsharded model on the card and float64 on the CPU."""
+        v, g = model.logp_and_grad(params)
+        g = {k: flat(t) for k, t in g.items()}
+        res, ok = {}, True
+        for name, ref, p in (("no_mesh", plain, whole),
+                             ("f64", model64, tree_map(lambda t: t.cpu().double(), whole))):
+            v_ref, g_ref = ref.logp_and_grad(p)
+            rel = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+            worst = _err_over_tol(g, g_ref, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX)
+            res[name] = {"value_rel_err": rel, "grad_err_over_tol": worst}
+            ok &= rel <= MODEL_VALUE_RTOL and worst <= 1.0
+        return ok, res
+
+    # Tensor parallelism at config 7's rows pooled.
+    data, _ = pft.generate_logistic_data(**wide, device="cpu")
+    (X, y), _mask = data.tree()
+    X = X.reshape(-1, X.shape[-1]).numpy()
+    y = y.reshape(-1).numpy()
+    plain = pft.parallel.TensorParallelLogistic(X, y, device=card)
+    tp64 = pft.parallel.TensorParallelLogistic(X, y, device="cpu", dtype=torch.float64)
+    whole = {"w": torch.full((X.shape[1],), 0.02, device=card),
+             "b": torch.tensor(0.1, device=card)}
+    tp_out = {"size": list(X.shape)}
+    for name, shape, rows in (("tp4", {"tp": AXES_SLOTS}, None),
+                              ("rows2_tp4", {"shards": 2, "tp": AXES_SLOTS}, "shards")):
+        model = pft.parallel.TensorParallelLogistic(X, y, mesh=mesh(shape), rows_axis=rows)
+        params = {"w": model._place({"w": whole["w"].chunk(AXES_SLOTS), "b": whole["b"]})["w"],
+                  "b": whole["b"]}
+        ok, res = against(model, plain, tp64, params, whole)
+        tp_out[name] = {"mesh": shape, "tile_shape": list(model.tile_shape), **res,
+                        "ms_per_logp_and_grad": _ms_per_eval(
+                            lambda: model.logp_and_grad(params), dev, reps),
+                        "cuda_launches_per_logp_and_grad": _launches(
+                            lambda: model.logp_and_grad(params), dev, 3)}
+        gates[f"tp.{name}"] = ok
+    tp_out["no_mesh_ms_per_logp_and_grad"] = _ms_per_eval(lambda: plain.logp_and_grad(whole),
+                                                          dev, reps)
+    out["tp"] = tp_out
+
+    # Expert parallelism.
+    yy, _ = generate_expert_mixture_data(ep["n_obs"], seed=ep["seed"])
+    model = pft.parallel.ExpertShardedMixture(yy, ep["k"], mesh=mesh({"experts": AXES_SLOTS}))
+    plain = pft.parallel.ExpertShardedMixture(yy, ep["k"], device=card)
+    ep64 = pft.parallel.ExpertShardedMixture(yy, ep["k"], device="cpu", dtype=torch.float64)
+    whole = {k: v + 0.1 for k, v in plain.init_params().items()}
+    params = model._place(whole)
+    ok, res = against(model, plain, ep64, params, whole)
+    out["ep"] = {"n_obs": ep["n_obs"], "k": ep["k"], "mesh": {"experts": AXES_SLOTS}, **res,
+                 "ms_per_logp_and_grad": {
+                     "mesh": _ms_per_eval(lambda: model.logp_and_grad(params), dev, reps),
+                     "no_mesh": _ms_per_eval(lambda: plain.logp_and_grad(whole), dev, reps)},
+                 "cuda_launches_per_logp_and_grad": {
+                     "mesh": _launches(lambda: model.logp_and_grad(params), dev, 3),
+                     "no_mesh": _launches(lambda: plain.logp_and_grad(whole), dev, 3)}}
+    gates["ep"] = ok
+
+    # Ulysses attention.
+    T, H, d = ulysses
+    gen = torch.Generator(device=card).manual_seed(17)
+    q, k, v = (torch.randn((T, H, d), generator=gen, device=card) for _ in range(3))
+    seq = mesh({"seq": AXES_SLOTS})
+    u_out = {"shape": [T, H, d], "mesh": {"seq": AXES_SLOTS}, "atol": AXES_ATTENTION_ATOL}
+    for causal in (False, True):
+        qq = q.clone().requires_grad_(True)
+        o = pft.parallel.ulysses_attention(qq, k, v, mesh=seq, causal=causal)
+        (gq,) = torch.autograd.grad(torch.sum(o**2), qq)
+        qd = q.clone().requires_grad_(True)
+        od = _dense_heads_attention(qd, k, v, causal=causal)
+        (gd,) = torch.autograd.grad(torch.sum(od**2), qd)
+        head = AXES_F64_HEADS[causal]
+        o64, g64 = _attention_f64_head(q, k, v, head, causal)
+        o, od = o.detach(), od.detach()
+        errs = {
+            "out_vs_no_mesh": float((o - od).abs().max()),
+            "grad_vs_no_mesh_of_max": float((gq - gd).abs().max() / gd.abs().max()),
+            f"out_vs_f64_head{head}": float((o[:, head:head + 1].cpu().double() - o64).abs().max()),
+            f"grad_vs_f64_head{head}_of_max": float(
+                (gq[:, head:head + 1].cpu().double() - g64).abs().max() / g64.abs().max()),
+        }
+
+        def step(fn, causal=causal):
+            x = q.clone().requires_grad_(True)
+            torch.autograd.grad(torch.sum(fn(x) ** 2), x)
+
+        mode = "causal" if causal else "full"
+        u_out[mode] = {**errs, "ms_per_forward_backward": {
+            "mesh": _ms_per_eval(lambda: step(lambda x: pft.parallel.ulysses_attention(
+                x, k, v, mesh=seq, causal=causal)), dev, reps),
+            "no_mesh": _ms_per_eval(lambda: step(lambda x: _dense_heads_attention(
+                x, k, v, causal=causal)), dev, reps)}}
+        gates[f"ulysses.{mode}"] = all(e <= AXES_ATTENTION_ATOL for e in errs.values())
+    out["ulysses"] = u_out
+    out["gates"] = gates
+    return all(gates.values()), out
+
+
+def _multihost_rank(rank, coord_port, hb_base, n_obs, dev, conn):
+    """One gloo rank of the multihost phase, in a process of its own
+    forked from the fork server (no CUDA there; this process initialises
+    its own).  Sends ("a", ...) after the cross-process evaluations; rank
+    1 then loops on local evaluations until it is killed; rank 0 probes
+    it, sends ("alive", ...) and, after the death, ("b", ...)."""
+    # The ranks meet on this host's loopback.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        import pytensor_federated_torch as pft
+        from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions, linreg_shard_logp
+        from pytensor_federated_torch.parallel import (
+            HeartbeatServer,
+            detect_dead_peers,
+            initialize_multihost,
+            make_multihost_mesh,
+            probe_peer,
+            remesh_after_failure,
+        )
+        from pytensor_federated_torch.utils import value_and_grad
+
+        card = torch.device("cuda", 0) if dev == "cuda" else torch.device("cpu")
+        world = initialize_multihost(f"127.0.0.1:{coord_port}", num_processes=MULTIHOST_RANKS,
+                                     process_id=rank, backend="gloo", timeout_s=60.0)
+        hb = HeartbeatServer(port=hb_base + rank, process_index=rank)
+        tree = _kernel_flagship(card, n_obs)
+        mesh = make_multihost_mesh(devices=[card] * MULTIHOST_SLOTS)
+        fed = pft.FederatedLogp(linreg_shard_logp, tree, mesh=mesh)
+        post = lambda p: pft.linreg_prior_logp(p) + fed.logp(p)
+        points = _multihost_points(card)
+        _sync(card)
+        linreg_reductions.launches = 0
+        evals = [value_and_grad(post, p) for p in points]
+        _sync(card)
+        launches = linreg_reductions.launches
+        ms = _ms_per_eval(lambda: value_and_grad(post, points[0]), dev, MULTIHOST_TIMED_EVALS)
+        _sync(card)
+        conn.send(("a", {
+            "rank": rank, "world": world, "mesh": dict(mesh.shape),
+            "processes": mesh.processes.reshape(-1).tolist(),
+            "process_index": pft.get_load([card])[0].process_index,
+            "logp": [float(v).hex() for v, _ in evals],
+            "grads": [{k: g[k].detach().cpu().reshape(-1).tolist() for k in sorted(g)}
+                      for _, g in evals],
+            "kernel_launches": launches, "evaluations": len(points),
+            "launches_through_timing": linreg_reductions.launches,
+            "ms_per_logp_and_grad": ms}))
+        if rank != 0:
+            local = pft.FederatedLogp(linreg_shard_logp, tree,
+                                      mesh=pft.make_mesh({"shards": 4}, devices=[card] * 4))
+            conn.send(("serving", {}))
+            while True:  # the work loop: only the SIGKILL ends it
+                local.logp(points[0])
+                _sync(card)
+                time.sleep(0.01)
+        peer = {1: ("127.0.0.1", hb_base + 1)}
+        end = time.monotonic() + MULTIHOST_WAIT_S
+        while not probe_peer(peer[1], timeout=0.5, expect_process_index=1):
+            if time.monotonic() > end:
+                raise TimeoutError("rank 1's heartbeat never answered")
+            time.sleep(0.05)
+        conn.send(("alive", {}))
+        sweeps, end = 0, time.monotonic() + MULTIHOST_WAIT_S
+        while detect_dead_peers(peer, **MULTIHOST_PROBE) != [1]:
+            sweeps += 1
+            if time.monotonic() > end:
+                raise TimeoutError("rank 1's death was never detected")
+            time.sleep(0.05)
+        detected_at = time.time()
+        survivors = remesh_after_failure(mesh, axis="shards", dead_process_ids=[1])
+        fed2 = pft.FederatedLogp(linreg_shard_logp, tree, mesh=survivors)
+        v2 = pft.linreg_prior_logp(points[0]) + fed2.logp(points[0])
+        _sync(card)
+        hb.stop()
+        conn.send(("b", {"detected_at": detected_at, "live_sweeps": sweeps,
+                         "launches_at_end": linreg_reductions.launches,
+                         "mesh": dict(survivors.shape), "multiprocess": survivors.is_multiprocess,
+                         "logp": float(v2)}))
+    except Exception:  # noqa: BLE001 — reported to the phase, which fails
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+        os._exit(0)  # no process-group teardown with a dead peer
+
+
+def _multihost_points(card):
+    """The origin and two points off it: the phase's evaluation points."""
+    base = {"intercept": 0.0, "slope": 0.0, "log_sigma": 0.0}
+    pts = []
+    for shift in (0.0, 0.3, -0.2):
+        p = {k: torch.tensor(v + shift, device=card) for k, v in base.items()}
+        p["offsets"] = shift * torch.linspace(-1.0, 1.0, 8, device=card)
+        pts.append(p)
+    return pts
+
+
+def phase_multihost(dev="cuda", n_obs=LARGE_PATH[1]):
+    """Slice 13, the multi-process mesh: two gloo ranks, each driving 4
+    slots of the card, evaluate the flagship's posterior over one
+    {"shards": 8} mesh; rank 1 is killed and rank 0 detects it, remeshes
+    and reproduces the value.  One card shows the partition and the
+    cross-process sum, not NCCL or concurrency across cards."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_shard_logp
+    from pytensor_federated_torch.utils import value_and_grad
+
+    card = torch.device("cuda", 0) if dev == "cuda" else torch.device("cpu")
+    ctx = _node_context()
+    coord, hb_base = _free_ports(1)[0], _free_hb_base()
+    conns, procs = [], []
+    for rank in range(MULTIHOST_RANKS):
+        parent, child = ctx.Pipe()
+        procs.append(ctx.Process(target=_multihost_rank, args=(rank, coord, hb_base, n_obs, dev, child),
+                                 name=f"multihost-rank{rank}"))
+        conns.append(parent)
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    msgs = {}
+
+    def recv(rank, want):
+        if not conns[rank].poll(MULTIHOST_WAIT_S):
+            raise TimeoutError(f"rank {rank} sent no {want!r} within {MULTIHOST_WAIT_S} s")
+        tag, body = conns[rank].recv()
+        if tag == "error":
+            raise RuntimeError(f"rank {rank} failed:\n{body}")
+        if tag != want:
+            raise RuntimeError(f"rank {rank} sent {tag!r}, expected {want!r}")
+        msgs[(rank, tag)] = body
+        return body
+
+    try:
+        a = [recv(r, "a") for r in range(MULTIHOST_RANKS)]
+        recv(1, "serving")
+        recv(0, "alive")
+        killed_at = time.time()
+        os.kill(procs[1].pid, signal.SIGKILL)
+        procs[1].join(timeout=10)
+        b = recv(0, "b")
+        procs[0].join(timeout=10)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    wall = time.perf_counter() - t0
+
+    # The single-process 8-slot mesh and no mesh, on the card, here.
+    tree = _kernel_flagship(card, n_obs)
+    one = pft.FederatedLogp(linreg_shard_logp, tree,
+                            mesh=pft.make_mesh({"shards": 8}, devices=[card] * 8))
+    none = pft.FederatedLogp(linreg_shard_logp, tree)
+    points = _multihost_points(card)
+    single, unsharded = [], []
+    for fed, sink in ((one, single), (none, unsharded)):
+        for p in points:
+            v, g = value_and_grad(lambda q: pft.linreg_prior_logp(q) + fed.logp(q), p)
+            sink.append((float(v), {k: g[k].detach().cpu().double().reshape(-1) for k in g}))
+    worst = {"single_process": 0.0, "no_mesh": 0.0}
+    value_rel = {"single_process": 0.0, "no_mesh": 0.0}
+    for i, grads in enumerate(a[0]["grads"]):
+        v = float.fromhex(a[0]["logp"][i])
+        for name, ref in (("single_process", single), ("no_mesh", unsharded)):
+            v_ref, g_ref = ref[i]
+            value_rel[name] = max(value_rel[name], abs(v - v_ref) / abs(v_ref))
+            worst[name] = max(worst[name], _err_over_tol(grads, g_ref, ZERO_GRAD_RTOL,
+                                                         ZERO_GRAD_ATOL_OF_MAX))
+    detect_s = b["detected_at"] - killed_at
+    remesh_rel = abs(b["logp"] - float.fromhex(a[0]["logp"][0])) / abs(float.fromhex(
+        a[0]["logp"][0]))
+    gates = {
+        "world": [x["world"] for x in a] == [2, 2]
+        and [x["process_index"] for x in a] == [0, 1]
+        and a[0]["processes"] == [0] * 4 + [1] * 4,
+        "ranks_logp_bits_equal": a[0]["logp"] == a[1]["logp"],
+        "ranks_grads_equal": a[0]["grads"] == a[1]["grads"],
+        "value_bits_equal_single_process": a[0]["logp"] == [v.hex() for v, _ in single],
+        "grads_match_single_process": worst["single_process"] <= 1.0,
+        "matches_no_mesh": value_rel["no_mesh"] <= ZERO_GRAD_RTOL and worst["no_mesh"] <= 1.0,
+        "one_launch_per_slot_per_evaluation": all(
+            x["kernel_launches"] == MULTIHOST_SLOTS * x["evaluations"] for x in a)
+        if card.type == "cuda" else True,
+        "death_detected_within_limit": 0.0 <= detect_s <= MULTIHOST_DETECT_LIMIT_S,
+        "remeshed_to_own_slots": b["mesh"] == {"shards": 4} and not b["multiprocess"],
+        "value_reproduced": remesh_rel <= ZERO_GRAD_RTOL,
+    }
+    return all(gates.values()), {
+        "phase": "multihost", "backend": "gloo", "ranks": MULTIHOST_RANKS,
+        "slots_per_rank": MULTIHOST_SLOTS, "size": [8, n_obs],
+        "note": "two ranks on one card: the partition and the cross-process sum, "
+                "not NCCL or concurrency across cards",
+        "wall_s": wall, "ms_per_logp_and_grad": [x["ms_per_logp_and_grad"] for x in a],
+        "value_rel_err": value_rel, "grad_err_over_tol": worst,
+        "detect_s": detect_s, "detect_limit_s": MULTIHOST_DETECT_LIMIT_S,
+        "live_sweeps_before_death": b["live_sweeps"], "remesh_value_rel_err": remesh_rel,
+        "gated_kernel_launches": sum(x["kernel_launches"] for x in a),
+        # Rank 0's launches to the end of its work, rank 1's through its
+        # timed evaluations: its work loop until the SIGKILL is not read.
+        "kernel_launches": b["launches_at_end"] + a[1]["launches_through_timing"],
+        "gates": gates,
+    }
+
+
+def _free_hb_base():
+    """A port with the next one free too: rank r's heartbeat on base + r."""
+    import socket
+
+    for _ in range(50):
+        base = _free_ports(1)[0]
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", base + 1))
+                return base
+            except OSError:
+                continue
+    raise RuntimeError("no two consecutive free ports")
+
+
+def phase_elastic(dev="cuda", n_obs=FLAGSHIP[1], ck=CHECKPOINT):
+    """Slice 13, elastic sampling: ``elastic_sample`` over the flagship
+    through the kernel on {"shards": 4} of the card, a failure injected
+    once chunk 0 is saved.  Rebuilt over the same slots, the draws equal
+    an uninterrupted run's bit for bit; shrunk to 2 slots (resumed from
+    the first run's checkpoint after chunk 0), the draws before the
+    failure are unchanged and the rest finite; the flight events are
+    recorded."""
+    import shutil
+    import tempfile
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.checkpoint import sample_checkpointed
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions, linreg_shard_logp
+    from pytensor_federated_torch.telemetry import flightrec, spans
+
+    card = torch.device("cuda", 0) if torch.device(dev).type == "cuda" else torch.device("cpu")
+    tree = _kernel_flagship(card, n_obs)
+    mesh4 = pft.make_mesh({"shards": ELASTIC_SLOTS}, devices=[card] * ELASTIC_SLOTS)
+    mesh2 = pft.make_mesh({"shards": ELASTIC_SHRUNK}, devices=[card] * ELASTIC_SHRUNK)
+    init = {"intercept": torch.tensor(0.0, device=card), "slope": torch.tensor(0.0, device=card),
+            "log_sigma": torch.tensor(0.0, device=card), "offsets": torch.zeros(8, device=card)}
+    gen = lambda: torch.Generator(device=card).manual_seed(9)
+    built, evals = [], {}  # evaluations per slot count
+
+    def build(fail, chunk0=None):
+        def build_logp(mesh):
+            built.append(dict(mesh.shape))
+            slots = mesh.shape["shards"]
+            fed = pft.FederatedLogp(linreg_shard_logp, tree, mesh=mesh)
+
+            def logp(p):
+                if fail["armed"] and os.path.exists(chunk0):
+                    fail["armed"], fail["fired"] = False, True
+                    raise RuntimeError("injected slot failure")
+                evals[slots] = evals.get(slots, 0) + 1
+                return pft.linreg_prior_logp(p) + fed.logp(p)
+
+            return logp
+
+        return build_logp
+
+    prev = spans.set_enabled(True), flightrec.set_enabled(True)
+    flightrec.clear()
+    _sync(card)
+    linreg_reductions.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") as d:
+            clean = sample_checkpointed(build({"armed": False})(mesh4), init, generator=gen(),
+                                        checkpoint_path=os.path.join(d, "clean.npz"), **ck)
+            path = os.path.join(d, "same.npz")
+            snap = os.path.join(d, "snapshot")
+            fail = {"armed": True, "fired": False}
+
+            def snapshot(i):
+                # The first run's checkpoint after chunk 0, the shrink run's start.
+                if i == 0:
+                    os.makedirs(snap)
+                    for f in (path, path + ".chunk0000.npz"):
+                        shutil.copy(f, snap)
+
+            same = pft.samplers.elastic_sample(
+                build(fail, path + ".chunk0000.npz"), init, generator=gen(),
+                checkpoint_path=path, mesh=mesh4, **ck, on_chunk=snapshot)
+            same_events = [e["kind"] for e in flightrec.events()]
+            shrunk_path = os.path.join(d, "shrunk.npz")
+            for f in os.listdir(snap):
+                shutil.copy(os.path.join(snap, f), os.path.join(d, f.replace("same", "shrunk")))
+            fail2 = {"armed": True, "fired": False}
+            policy = []
+            shrunk = pft.samplers.elastic_sample(
+                build(fail2, shrunk_path + ".chunk0000.npz"), init, generator=gen(),
+                checkpoint_path=shrunk_path, mesh=mesh4,
+                on_failure=lambda m, dead: policy.append(dict(m.shape)) or mesh2, **ck)
+    finally:
+        spans.set_enabled(prev[0])
+        flightrec.set_enabled(prev[1])
+    _sync(card)
+    wall = time.perf_counter() - t0
+    launches = linreg_reductions.launches
+    events = [e["kind"] for e in flightrec.events()]
+    flightrec.clear()
+    first = ck["checkpoint_every"]
+    gates = {
+        "failure_fired": fail["fired"] and fail2["fired"],
+        "same_layout_bits_equal_uninterrupted": all(
+            torch.equal(same.samples[k], clean.samples[k]) for k in clean.samples),
+        "same_layout_rebuilt_over_4_slots": built[1:3] == [{"shards": 4}] * 2,
+        "shrunk_to_2_slots": policy == [{"shards": 4}] and built[-1] == {"shards": 2},
+        "shrunk_chunk0_unchanged": all(
+            torch.equal(shrunk.samples[k][:, :first], clean.samples[k][:, :first])
+            for k in clean.samples),
+        "shrunk_rest_finite": all(bool(torch.isfinite(v).all()) for v in shrunk.samples.values()),
+        "flight_events": (["sampler.segment_failed", "mesh.remesh", "sampler.recovered"]
+                          == [k for k in same_events if k.startswith(("sampler.", "mesh."))]
+                          and events.count("sampler.segment_failed") == 2
+                          and events.count("sampler.recovered") == 2),
+        # One launch per slot and evaluation, the clean run's included.
+        "launches_equal_slots_per_eval": (launches == sum(n * c for n, c in evals.items())
+                                          if card.type == "cuda" else True),
+    }
+    return all(gates.values()), {
+        "phase": "elastic", **ck, "size": [8, n_obs], "mesh": {"shards": ELASTIC_SLOTS},
+        "shrunk_mesh": {"shards": ELASTIC_SHRUNK}, "builds": built, "wall_s": wall,
+        "evaluations_by_slots": evals, "kernel_launches": launches,
+        "ms_per_eval": wall * 1e3 / max(sum(evals.values()), 1), "flight_events": events,
+        "draws_sha256": _draws_sha256(same.samples), "gates": gates,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
                                            "slice7", "slice8", "slice9", "slice10", "slice11",
-                                           "slice12"],
+                                           "slice12", "slice13"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
@@ -5443,7 +6151,8 @@ def main() -> int:
                              "slice10: device, build, nuts, vi, particles, sgld, sbc, "
                              "checkpoint and demos only; slice11: device, build, nuts_large, "
                              "optim and mesh only; slice12: device, build, nuts_large, "
-                             "multichain and seq only")
+                             "multichain and seq only; slice13: device, build, nuts_large, "
+                             "zero, parallel_axes, multihost and elastic only")
     parser.add_argument("--multichain-seeds", default=",".join(map(str, MULTICHAIN_SEEDS)),
                         type=lambda v: tuple(int(x) for x in v.split(",")),
                         help="comma-separated seeds of the multichain phase's NUTS runs, "
@@ -5519,6 +6228,10 @@ def main() -> int:
         ("multichain", lambda: phase_multichain(lines.get("nuts_large", {}),
                                                  seeds=args.multichain_seeds)),
         ("seq", phase_seq),
+        ("zero", phase_zero),
+        ("parallel_axes", phase_parallel_axes),
+        ("multihost", phase_multihost),
+        ("elastic", phase_elastic),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -5543,6 +6256,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("nuts_large", "optim", "mesh")]
     elif args.only == "slice12":
         phases = [ph for ph in phases if ph[0] in ("nuts_large", "multichain", "seq")]
+    elif args.only == "slice13":
+        phases = [ph for ph in phases if ph[0] in ("nuts_large",) + SLICE13]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -5601,10 +6316,16 @@ def main() -> int:
         # nodes over both sharded runs, the driver-centric control
         # excluded; in the nuts, nuts_large and multichain phases, whose
         # NUTS runs replay a CUDA graph, the profiler's launches per
-        # replay times the replays plus the graph's eager warm-up calls).
+        # replay times the replays plus the graph's eager warm-up calls;
+        # in the zero phase over the whole flagship case, the gate
+        # evaluations, the sharded loops and the replicated loops they
+        # are held against; in the multihost phase by rank 0 to the end
+        # of its work and by rank 1 through its timed evaluations, its
+        # work loop until the SIGKILL not read; in the elastic phase over
+        # its three runs).
         "launches": sum(lines[p].get("kernel_launches", 0)
                         for p in ("nuts", "nuts_large", "pool", "gateway", "optim", "multichain")
-                        + SLICE10)
+                        + SLICE10 + SLICE13)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

@@ -18,6 +18,11 @@ against the same data, as ``jax.vmap`` batches the JAX package's
 ``csrc/linreg_reductions.cu`` once for all chains; on CPU tensors it runs
 :func:`linreg_reductions_ref`, the plain PyTorch version that the kernel
 is held against.  There is no other path: any other device raises.
+
+Under ``torch.func.vmap`` over a batch of shards instead
+(:func:`linreg_shard_logp`, the per-shard form that ``FederatedLogp``
+maps over a mesh slot's block), the block's rows go to the kernel as
+one launch as well.
 """
 
 from __future__ import annotations
@@ -250,30 +255,34 @@ linreg_reductions.launches = 0
 class _LinregLogp(torch.autograd.Function):
     """``Σ_i ll_i`` with the gradient the forward pass already produced.
 
-    Returns ``(logp, totals, gmu)``; the last two are the saved
-    reductions, not differentiable (:class:`_DataLogp` gives the first).  The backward only scales them by the
-    incoming cotangent: value and gradient cost ONE data pass together.
-    On CUDA the forward is the kernel's one launch: the parameters enter
-    by pointer and the kernel writes the totals.  The parameters may
-    carry leading chain axes, and under ``torch.func.vmap`` the
-    :meth:`vmap` rule moves the vmapped axis in front and calls the
-    batched launch once for all chains: it never loops over chains.
+    Returns ``(logp, ll, out)``: the total (the kernel's totals row), the
+    per-shard ``ll_i`` (``(..., S)``), both differentiable, and the
+    reductions ``out`` (``(..., S + 1, 4)``, not differentiable).
+    :class:`_DataLogp` gives the first; a batch of shard blocks
+    (:func:`_shard_batched`) sums the second by block.  The backward
+    only scales the saved reductions by the incoming cotangents: value
+    and gradient cost ONE data pass together.  On CUDA the forward is the
+    kernel's one launch: the parameters enter by pointer and the kernel
+    writes the reductions.  The parameters may carry leading chain axes,
+    and under ``torch.func.vmap`` the :meth:`vmap` rule moves the vmapped
+    axis in front and calls the batched launch once for all chains: it
+    never loops over chains.
     """
 
     @staticmethod
     def forward(intercept, slope, log_sigma, offsets, x, y, mask):
         out = _reduce((intercept, slope, log_sigma), offsets, x, y, mask)
         S = out.shape[-2] - 1
-        return out[..., S, 0], out[..., S, :], out[..., :S, 1]
+        return out[..., S, 0], out[..., :S, 0], out
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, totals, goff = output
-        ctx.mark_non_differentiable(totals, goff)
-        ctx.save_for_backward(totals, goff)
+        ctx.mark_non_differentiable(output[2])
+        ctx.save_for_backward(output[2])
+        ctx.set_materialize_grads(False)
 
     @staticmethod
-    def backward(ctx, g, _g_totals, _g_goff):
+    def backward(ctx, g, g_ll, _g_out):
         # No second derivative through the kernel, as in the JAX package:
         # under create_graph=True grad mode is on here, so refuse.  (torch's
         # @once_differentiable refuses only when the cotangent itself
@@ -284,19 +293,32 @@ class _LinregLogp(torch.autograd.Function):
             raise RuntimeError(
                 "second-order autodiff through the linreg kernel is unsupported"
             )
-        totals, goff = ctx.saved_tensors
-        return (
-            g * totals[..., 1], g * totals[..., 2], g * totals[..., 3], g[..., None] * goff,
-            None, None, None,
-        )
+        (out,) = ctx.saved_tensors
+        S = out.shape[-2] - 1
+        grads = []
+        if g is not None:
+            totals = out[..., S, :]
+            grads.append((g * totals[..., 1], g * totals[..., 2], g * totals[..., 3],
+                          g[..., None] * out[..., :S, 1]))
+        if g_ll is not None:
+            gmu = g_ll * out[..., :S, 1]
+            grads.append((gmu.sum(-1), (g_ll * out[..., :S, 2]).sum(-1),
+                          (g_ll * out[..., :S, 3]).sum(-1), gmu))
+        if not grads:
+            return (None,) * 7
+        summed = grads[0] if len(grads) == 1 else tuple(a + b for a, b in zip(*grads))
+        return (*summed, None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, intercept, slope, log_sigma, offsets, x, y, mask):
         if any(d is not None for d in in_dims[4:]):
-            raise ValueError(
-                "the linreg kernel shares x, y and mask among chains; "
-                "vmap over the parameters only"
-            )
+            if any(d is not None for d in in_dims[:3]) or any(d is None for d in in_dims[4:]):
+                raise ValueError(
+                    "the linreg kernel shares x, y and mask among chains; vmap over the "
+                    "parameters only, or over a batch of shards (x, y, mask and offsets "
+                    "together) with shared intercept, slope and log_sigma"
+                )
+            return _shard_batched(info, in_dims, intercept, slope, log_sigma, offsets, x, y, mask)
 
         def front(t, d):
             if d is None:
@@ -307,12 +329,47 @@ class _LinregLogp(torch.autograd.Function):
         return _LinregLogp.apply(*params, x, y, mask), (0, 0, 0)
 
 
+def _shard_batched(info, in_dims, intercept, slope, log_sigma, offsets, x, y, mask):
+    """The vmap rule over a batch of shard blocks (``torch.func.vmap`` of
+    a per-shard logp over the shard axis, as ``FederatedLogp`` maps its
+    shards): the blocks' rows are stacked into one ``(B S, N)`` call, a
+    single launch, with the parameters shared by every block; each
+    block's logp is the sum of its rows' ``ll_i``."""
+    B = info.batch_size
+    x, y, mask = (t.movedim(d, 0).reshape(-1, t.shape[-1]).contiguous()
+                  for t, d in zip((x, y, mask), in_dims[4:]))
+    offsets = (offsets.expand(B, *offsets.shape) if in_dims[3] is None
+               else offsets.movedim(in_dims[3], 0))
+    S = offsets.shape[-1]
+    _, ll, out = _LinregLogp.apply(intercept, slope, log_sigma,
+                                   offsets.reshape(-1).contiguous(), x, y, mask)
+    ll, rows = ll.reshape(B, S), out[:-1].reshape(B, S, 4)
+    return (ll.sum(-1), ll, torch.cat([rows, rows.sum(-2, keepdim=True)], dim=-2)), (0, 0, 0)
+
+
 class _DataLogp:
     """The differentiable scalar ``Σ_i ll_i`` of :class:`_LinregLogp`."""
 
     @staticmethod
     def apply(intercept, slope, log_sigma, offsets, x, y, mask):
         return _LinregLogp.apply(intercept, slope, log_sigma, offsets, x, y, mask)[0]
+
+
+def linreg_shard_logp(params: Any, shard: Any) -> torch.Tensor:
+    """One shard's data log-likelihood through the kernel, in the
+    per-shard form ``FederatedLogp`` maps: ``params`` as
+    :class:`..models.linear.FederatedLinearRegression`'s, ``shard`` its
+    data tree's entry ``((x, y), mask, shard_id)`` with ``x, y, mask`` of
+    shape ``(N,)``.  Under ``torch.func.vmap`` over a block of shards it
+    is one kernel launch for the block (a mesh slot's whole block); on
+    CPU tensors the plain version.  The data are used as given (float32,
+    contiguous rows on CUDA)."""
+    (x, y), mask, sid = shard
+    offset = params["offsets"][sid]
+    return _DataLogp.apply(
+        params["intercept"], params["slope"], params["log_sigma"], offset[None],
+        x[None], y[None], mask[None],
+    )
 
 
 def linreg_logp_grad_fn(

@@ -8,9 +8,12 @@ device grid (``devices``), so the sharded evaluator's divisibility
 checks and error strings carry over.  It holds ``torch.device``s, and a
 device may appear more than once (``[torch.device("cuda", 0)] * 4``: four
 slots on one card run one after another on its stream), as
-``jax.sharding.Mesh`` accepts a repeated device.  The multi-process
-layer (``torch.distributed``) is a separate module, as the JAX
-package's ``parallel/multihost.py`` is, and is not ported.
+``jax.sharding.Mesh`` accepts a repeated device.  A mesh may also span
+processes joined by ``torch.distributed``: each slot then carries the
+rank of the process that drives it (``processes``), every process
+holds the same mesh and evaluates only its own slots, and the
+cross-slot sums cross processes (:mod:`.multihost` builds such a mesh;
+:mod:`._collectives` holds the collectives).
 
 Axis conventions (all optional — models use what they need):
 
@@ -57,16 +60,43 @@ __all__ = [
     "get_load",
     "healthy_devices",
     "make_mesh",
+    "process_count",
+    "process_index",
     "single_device_mesh",
 ]
+
+
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` world, 0 when no
+    process group is initialised."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The ``torch.distributed`` world size, 1 when no process group is
+    initialised."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 class Mesh:
     """A named grid of ``torch.device``s: ``devices`` is an object array
     whose axes are ``axis_names``; ``shape`` maps each name to its size
-    (an ``OrderedDict``, as ``jax.sharding.Mesh.shape``)."""
+    (an ``OrderedDict``, as ``jax.sharding.Mesh.shape``).
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    ``processes`` (an int array of the grid's shape) gives the rank of
+    the process that drives each device; without it every device is
+    this process's.  A device of another process is a name only: this
+    process never places anything on it."""
+
+    def __init__(
+        self,
+        devices: np.ndarray,
+        axis_names: Sequence[str],
+        *,
+        processes: Optional[np.ndarray] = None,
+    ):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
@@ -76,20 +106,43 @@ class Mesh:
             )
         if len(set(axis_names)) != len(axis_names):
             raise ValueError(f"mesh axis names repeat: {axis_names}")
+        if processes is not None:
+            processes = np.asarray(processes, dtype=np.int64)
+            if processes.shape != devices.shape:
+                raise ValueError(
+                    f"mesh processes have shape {processes.shape}, devices {devices.shape}"
+                )
         self.devices = devices
+        self.processes = processes
         self.axis_names = axis_names
         self.shape = OrderedDict(zip(axis_names, devices.shape))
+
+    def _first_of_groups(self, grid: np.ndarray, axis: str) -> list:
+        grid = np.moveaxis(grid, self.axis_names.index(axis), 0)
+        return list(grid.reshape(grid.shape[0], -1)[:, 0])
 
     def slot_devices(self, axis: str) -> List[torch.device]:
         """The device of each slot along ``axis``: where the slot's block
         of shards lives and is evaluated.  Over the other axes a block is
         replicated; it is evaluated on the first device of that
         replica group."""
-        grid = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
-        return list(grid.reshape(grid.shape[0], -1)[:, 0])
+        return self._first_of_groups(self.devices, axis)
+
+    def slot_processes(self, axis: str) -> List[int]:
+        """The rank of the process that evaluates each slot along
+        ``axis`` (that of the slot's device, :meth:`slot_devices`)."""
+        if self.processes is None:
+            return [process_index()] * self.shape[axis]
+        return [int(p) for p in self._first_of_groups(self.processes, axis)]
+
+    @property
+    def is_multiprocess(self) -> bool:
+        """Whether the mesh's devices belong to more than one process."""
+        return self.processes is not None and len(np.unique(self.processes)) > 1
 
     def __repr__(self) -> str:
-        return f"Mesh({dict(self.shape)}, devices={self.devices.reshape(-1).tolist()})"
+        extra = "" if self.processes is None else f", processes={self.processes.reshape(-1).tolist()}"
+        return f"Mesh({dict(self.shape)}, devices={self.devices.reshape(-1).tolist()}{extra})"
 
 
 class NamedSharding:
@@ -224,10 +277,11 @@ class DeviceLoad:
 
 def get_load(devices: Optional[Sequence[Any]] = None) -> list[DeviceLoad]:
     """Load snapshot for every device (every visible CUDA device by
-    default).  A device whose statistics cannot be read is reported
-    with ``None`` stats."""
+    default), as seen by this process: ``process_index`` is its rank in
+    the ``torch.distributed`` world (0 without one).  A device whose
+    statistics cannot be read is reported with ``None`` stats."""
     devices = _visible_devices() if devices is None else [torch.device(d) for d in devices]
-    out = []
+    rank, out = process_index(), []
     for d in devices:
         in_use = limit = None
         if d.type == "cuda":
@@ -240,7 +294,7 @@ def get_load(devices: Optional[Sequence[Any]] = None) -> list[DeviceLoad]:
             DeviceLoad(
                 device_id=d.index or 0,
                 platform="gpu" if d.type == "cuda" else d.type,
-                process_index=0,
+                process_index=rank,
                 bytes_in_use=in_use,
                 bytes_limit=limit,
             )

@@ -14,6 +14,14 @@ where the JAX package's ``shard_map`` ends in a ``lax.psum``.  The
 backward of the copies adds every slot's gradient into the one
 parameter, so a replicated parameter's gradient is the unsharded one.
 The slots on one device run one after another on its stream.
+
+On a mesh that spans processes (:mod:`.multihost`), each process places
+and evaluates only its own slots, from its full host copy of the data;
+the slots' sums are gathered across the processes and added in slot
+order on each process's first slot's device, and the replicated
+parameters' gradients are summed across the processes
+(:mod:`._collectives`).  Every process then holds the same value, with
+the bits one process driving every slot would give.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 
 from ..utils import tree_leaves, tree_map, value_and_grad
-from .mesh import SHARDS_AXIS, Mesh
+from ._collectives import gather_slots, sum_grads_across_processes
+from .mesh import SHARDS_AXIS, Mesh, process_index
 
 # per_shard_logp(params, shard_data) -> scalar logp contribution of one shard.
 PerShardLogpFn = Callable[[Any, Any], torch.Tensor]
@@ -47,13 +56,24 @@ def _leading_dim(data: Any) -> int:
 def _shard_data_to_mesh(data: Any, mesh: Mesh, axis: str) -> List[Any]:
     """Split the stacked data tree's leading axis into ``mesh.shape[axis]``
     contiguous blocks, slot ``j``'s block on its device: the one-time
-    layout after which shard data never moves between slots."""
-    devices = mesh.slot_devices(axis)
+    layout after which shard data never moves between slots.  A slot of
+    another process gets ``None``: its process places its own block."""
+    devices, owners, me = mesh.slot_devices(axis), mesh.slot_processes(axis), process_index()
     per_slot = _leading_dim(data) // len(devices)
     return [
         tree_map(lambda leaf: leaf[j * per_slot : (j + 1) * per_slot].to(d), data)
-        for j, d in enumerate(devices)
+        if p == me else None
+        for j, (d, p) in enumerate(zip(devices, owners))
     ]
+
+
+def _home_device(mesh: Mesh, axis: str) -> torch.device:
+    """Where this process adds the slots' values: its first slot's device."""
+    me = process_index()
+    for d, p in zip(mesh.slot_devices(axis), mesh.slot_processes(axis)):
+        if p == me:
+            return d
+    raise ValueError(f"process {me} drives no slot of the mesh's axis {axis!r}")
 
 
 def _to(tree: Any, device: torch.device) -> Any:
@@ -144,6 +164,8 @@ class FederatedLogp:
                     f"{axis!r} of size {axis_size}"
                 )
             self._slot_devices = mesh.slot_devices(axis)
+            self._owners = mesh.slot_processes(axis)
+            self._home = _home_device(mesh, axis)
             self._slots = _shard_data_to_mesh(data, mesh, axis)
 
     def _shard_map(self, params: Any, data: Any) -> torch.Tensor:
@@ -169,25 +191,37 @@ class FederatedLogp:
 
     def _per_slot(self, params: Any, blocks: Sequence[Any]) -> List[torch.Tensor]:
         """Each slot's per-shard vector over its ``blocks`` entry, on its
-        device."""
+        device: this process's slots only, on a multi-process mesh."""
         return [
             self._shard_map(_to(params, d), block)
             for d, block in zip(self._slot_devices, blocks)
+            if block is not None
         ]
+
+    def _slot_values(self, params: Any, blocks: Sequence[Any], reduce) -> List[torch.Tensor]:
+        """``reduce`` of each slot's per-shard vector, every slot's in
+        slot order: on a multi-process mesh gathered from the processes
+        onto this process's first slot's device, the parameters' gradient
+        summed over the processes."""
+        if not self.mesh.is_multiprocess:
+            return [reduce(v) for v in self._per_slot(params, blocks)]
+        params = sum_grads_across_processes(params)
+        local = [reduce(v) for v in self._per_slot(params, blocks)]
+        return list(gather_slots(local, self._owners, self._home))
 
     def per_shard_logps(self, params: Any) -> torch.Tensor:
         """Vector of per-shard contributions (with a mesh, the slots'
         vectors in slot order on the first slot's device)."""
         if self.mesh is None:
             return self._shard_map(params, self.data)
-        first = self._slot_devices[0]
-        return torch.cat([v.to(first) for v in self._per_slot(params, self._slots)], dim=-1)
+        parts = self._slot_values(params, self._slots, lambda v: v)
+        return torch.cat([v.to(self._home) for v in parts], dim=-1)
 
     def logp(self, params: Any) -> torch.Tensor:
         """Scalar total log-potential."""
         if self.mesh is None:
             return self.per_shard_logps(params).sum()
-        return _cross_slot_sum([v.sum(-1) for v in self._per_slot(params, self._slots)])
+        return _cross_slot_sum(self._slot_values(params, self._slots, lambda v: v.sum(-1)))
 
     def logp_and_grad(self, params: Any) -> Tuple[torch.Tensor, Any]:
         """(logp, grads) from one forward and one backward pass."""
@@ -230,8 +264,8 @@ class FederatedLogp:
         take = lambda tree, i: tree_map(lambda a: torch.index_select(a, 0, i.to(a.device)), tree)
         if self.mesh is None:
             return self._shard_map(params, take(self.data, idx)).sum() * scale
-        blocks = [take(block, i) for block, i in zip(self._slots, idx)]
-        return _cross_slot_sum([v.sum(-1) for v in self._per_slot(params, blocks)]) * scale
+        blocks = [None if block is None else take(block, i) for block, i in zip(self._slots, idx)]
+        return _cross_slot_sum(self._slot_values(params, blocks, lambda v: v.sum(-1))) * scale
 
     def _draw_shards(self, generator: torch.Generator, num_shards: int) -> torch.Tensor:
         if not (0 < num_shards <= self.n_shards):
@@ -299,7 +333,10 @@ def sharded_compute(
     each slot maps its block of shards on its device with its own copy
     of ``params`` (a gradient taken inside ``per_shard_fn`` stays the
     slot's own), and the slots' outputs are stacked in slot order on the
-    first slot's device."""
+    first slot's device (on a multi-process mesh, gathered from the
+    processes onto this process's first slot's device, and a gradient
+    through the outputs summed over the processes, so that every process
+    holds the whole one)."""
     n_shards = _leading_dim(data)
     if mesh is None:
 
@@ -313,14 +350,24 @@ def sharded_compute(
         raise ValueError(
             f"n_shards={n_shards} not divisible by mesh axis size {axis_size}"
         )
-    devices = mesh.slot_devices(axis)
+    devices, owners = mesh.slot_devices(axis), mesh.slot_processes(axis)
+    home = _home_device(mesh, axis)
     blocks = _shard_data_to_mesh(data, mesh, axis)
 
     def fn_mesh(params):
+        if mesh.is_multiprocess:
+            # Each process passes back its own slots' cotangents only;
+            # the replicated parameters' gradients are summed over the
+            # processes, as in FederatedLogp._slot_values.
+            params = sum_grads_across_processes(params)
         outs = [
             torch.func.vmap(lambda d, p=_to(params, dev): per_shard_fn(p, d))(block)
             for dev, block in zip(devices, blocks)
+            if block is not None
         ]
-        return tree_map(lambda *leaves: torch.cat([v.to(devices[0]) for v in leaves]), *outs)
+        if mesh.is_multiprocess:
+            return tree_map(lambda *leaves: gather_slots(leaves, owners, home).flatten(0, 1),
+                            *outs)
+        return tree_map(lambda *leaves: torch.cat([v.to(home) for v in leaves]), *outs)
 
     return fn_mesh

@@ -58,20 +58,22 @@ def gaussian_entropy(dim: int, log_sd_sum: Any = 0.0) -> Any:
     return log_sd_sum + 0.5 * dim * (1.0 + LOG_2PI)
 
 
-def adam_updates(grads, mu, nu, count: int, learning_rate: float):
+def adam_updates(grads, mu, nu, count: int, learning_rate: float, *, b1: float = _B1,
+                 b2: float = _B2, eps: float = _EPS, correction_dtype=None):
     """optax Adam's update for step ``count`` over lists of tensors:
     ``(updates, mu, nu)``; the step adds ``updates`` to the parameters.
 
     optax's order: moments ``(1-b) g + b m``, bias corrections ``1 -
     b**count`` in the gradients' precision (float32, or float64 as
-    optax computes them under ``jax_enable_x64``), ``(m̂ / (sqrt(v̂) +
-    eps))`` scaled by ``-learning_rate``."""
-    real = np.float64 if grads[0].dtype == torch.float64 else np.float32
-    bc1 = float(1 - real(_B1) ** count)
-    bc2 = float(1 - real(_B2) ** count)
-    mu = [(1 - _B1) * g + _B1 * m for g, m in zip(grads, mu)]
-    nu = [(1 - _B2) * (g**2) + _B2 * v for g, v in zip(grads, nu)]
-    updates = [(-learning_rate) * ((m / bc1) / (torch.sqrt(v / bc2) + _EPS)) for m, v in zip(mu, nu)]
+    optax computes them under ``jax_enable_x64``; ``correction_dtype``
+    overrides it), ``(m̂ / (sqrt(v̂) + eps))`` scaled by
+    ``-learning_rate`` (``-1.0`` gives ``scale_by_adam``'s update)."""
+    real = np.float64 if (correction_dtype or grads[0].dtype) == torch.float64 else np.float32
+    bc1 = float(1 - real(b1) ** count)
+    bc2 = float(1 - real(b2) ** count)
+    mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, mu)]
+    nu = [(1 - b2) * (g**2) + b2 * v for g, v in zip(grads, nu)]
+    updates = [(-learning_rate) * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for m, v in zip(mu, nu)]
     return updates, mu, nu
 
 

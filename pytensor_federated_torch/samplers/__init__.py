@@ -5,11 +5,13 @@ chain of a run steps in lockstep, as one batch.  Variational inference
 stochastic-gradient Langevin samplers and simulation-based calibration,
 each evaluating its particles, walkers or draws as one batch.  After a
 run: posterior and prior predictive draws, WAIC / PSIS-LOO model
-comparison, the Laplace approximation and the arviz export."""
+comparison, the Laplace approximation and the arviz export.  Elastic
+sampling: checkpointed sampling that recovers from a failed segment."""
 
 from .advi import ADVIResult, FullRankADVIResult, advi_fit, fullrank_advi_fit
 from .arviz_export import to_dataset_dict, to_inference_data
 from .chees import chees_sample
+from .elastic import elastic_sample
 from .convergence import effective_sample_size, hdi, split_rhat, summary, tail_ess
 from .hmc import (
     HMCInfo,

@@ -273,21 +273,13 @@ def test_top_level_all_is_the_jax_packages_minus_the_unported():
     assert [n for n in port_all if not hasattr(pft, n)] == []
 
 
-#: Names of the JAX package's ``parallel/__init__.py`` whose modules the
-#: port does not have yet (ROADMAP Queue 1 item 4, "Then").  The ring
-#: collectives are ported; these are not.
+#: Names of the JAX package's ``parallel/__init__.py`` whose module the
+#: port does not have yet: ``parallel/federated.py`` binds the ``fed/``
+#: primitives (ROADMAP Queue 1 item 5).  Every other module is ported.
 UNPORTED_PARALLEL = {
-    "EXPERTS_AXIS": "expert.py", "ExpertShardedMixture": "expert.py",
-    "TP_AXIS": "tensor.py", "TensorParallelLogistic": "tensor.py",
-    "ScatteredGrads": "zero.py", "ZeroShardedLogpGrad": "zero.py",
-    "heads_to_seq": "ulysses.py", "seq_to_heads": "ulysses.py",
-    "ulysses_attention": "ulysses.py",
     "fedavg": "federated.py", "federated_broadcast": "federated.py",
     "federated_map": "federated.py", "federated_mean": "federated.py",
     "federated_sum": "federated.py",
-    "HeartbeatServer": "multihost.py", "detect_dead_peers": "multihost.py",
-    "initialize_multihost": "multihost.py", "make_multihost_mesh": "multihost.py",
-    "probe_peer": "multihost.py", "remesh_after_failure": "multihost.py",
 }
 #: Names of the port's ``parallel`` that the JAX package's does not
 #: export (its mesh is ``jax.sharding.Mesh``; ``NamedSharding`` comes
@@ -296,15 +288,41 @@ PORT_ONLY_PARALLEL = {"Mesh", "NamedSharding", "NoFederatedShards"}
 
 
 def test_parallel_all_is_the_jax_packages_minus_the_unported():
-    """The port's ``parallel.__all__`` is the JAX package's, ring
-    collectives included, less the names of the modules still to port,
-    plus the port's own; every name resolves."""
+    """The port's ``parallel.__all__`` is the JAX package's, ZeRO,
+    tensor, expert, Ulysses and the multi-process layer included, less
+    exactly ``fedavg`` and the four ``federated_*`` names, plus the
+    port's own; every name resolves."""
     jax_all = _all_of(ROOT / "pytensor_federated_tpu" / "parallel" / "__init__.py")
     port_all = _all_of(ROOT / "pytensor_federated_torch" / "parallel" / "__init__.py")
     assert len(port_all) == len(set(port_all))
-    assert set(port_all) - PORT_ONLY_PARALLEL == set(jax_all) - set(UNPORTED_PARALLEL)
-    assert set(UNPORTED_PARALLEL) <= set(jax_all)
+    assert set(jax_all) - set(port_all) == set(UNPORTED_PARALLEL)
+    assert set(port_all) - set(jax_all) == PORT_ONLY_PARALLEL
     assert [n for n in port_all if not hasattr(pft.parallel, n)] == []
+
+
+#: The modules of the rest of the parallel layer and elastic sampling.
+PARALLEL_MODULES = (
+    "parallel.zero", "parallel.tensor", "parallel.expert", "parallel.ulysses",
+    "parallel.multihost", "parallel._collectives", "samplers.elastic",
+)
+
+
+@pytest.mark.parametrize("name", PARALLEL_MODULES)
+def test_each_parallel_module_alone_loads_no_jax_or_grpc_and_joins_no_world(name):
+    """Each module, imported first and alone in a fresh interpreter,
+    pulls in neither JAX, nor the JAX package, nor gRPC, and initialises
+    no ``torch.distributed`` process group."""
+    code = (
+        "import importlib, sys, torch\n"
+        f"importlib.import_module('pytensor_federated_torch.{name}')\n"
+        f"print('BAD', sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)}),\n"
+        "      torch.distributed.is_initialized())\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] False" in out.stdout, out.stdout
 
 
 def test_models_export_every_name_of_the_jax_models():
