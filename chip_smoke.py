@@ -19,6 +19,7 @@
                                            # the same, the multichain NUTS on 5 seeds
     python3 chip_smoke.py --only slice13   # device, build, nuts_large, zero,
                                            # parallel_axes, multihost, elastic
+    python3 chip_smoke.py --only slice14   # device, build, fed
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -50,11 +51,11 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    wrapper's host-side launch counter, so after the run the phase takes
    the run's own graph (``extra["graph"]``), holds its replays bit for
    bit against eager calls at 8 states, times 50 eager calls and 50
-   replays, and has the profiler record the kernel's launches over a
-   window of 10 replays (after one replay of wait and two of warm-up):
-   it must see exactly 10, one per replay.  The phase's launches are
-   that count times the run's replays, plus the graph's eager warm-up
-   calls.
+   replays, and counts the kernel nodes of the captured graph itself
+   (the CUDA driver API's ``cuGraphGetNodes``): it must hold exactly one
+   of the linreg kernel, one launch per replay.  The phase's launches
+   are that count times the run's replays, plus the graph's eager
+   warm-up calls.
 6. ``nuts_large`` — the same at 8 x 131,072 observations, so the kernel
    moves real bytes on every leapfrog step: 1 chain x 300 warmup + 300
    draws with a dense mass matrix.  At this size the data pin every
@@ -313,12 +314,12 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    intercept + offset; the raw parameters' recorded); means within 4
    combined MCSEs of ``nuts_large``'s (``--multichain-seeds`` gates more
    seeds the same way); the run's own graph launches the kernel as an
-   eager call does (the profiler, as in ``nuts``; none here: the
+   eager call does (its kernel nodes, as in ``nuts``; none here: the
    per-shard function is the plain path); a short run twice on one
    generator, bit for bit.  Then
    ``sample(chain_sharding=...)`` (4 chains over ``{"chains": 2}``,
    graphed, through the kernel: two launches per replay of the run's
-   own graph, one per block, by the profiler)
+   own graph, one per block, by its kernel nodes)
    and ``chees_sample(chain_sharding=...)`` (8 chains, eager, through the
    kernel) at 8 x 64, and ``pt_sample(temp_sharding=...)`` on the
    tempering phase's bimodal (8 rungs over ``{"temps": 8}``), each against
@@ -379,6 +380,26 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    the ``sampler.segment_failed``, ``mesh.remesh`` and
    ``sampler.recovered`` flight events; one kernel launch per slot and
    evaluation.
+34. ``fed`` — the ``fed`` layer.  The mesh lane: ``fed.FederatedLogpGrad``
+   of the flagship's data term through the kernel
+   (``linreg_shard_logp``) at 8 x 131,072 over ``{"shards": 4}`` of the
+   card, at 8 seeded points against ``FederatedLogp(linreg_shard_logp,
+   mesh=same)`` (gradients bit for bit: the same per-slot maps and
+   cotangents) and against float64 on the CPU (values within float32
+   rounding: ``fed_sum`` adds the eight per-shard values, FederatedLogp
+   each slot's first); one kernel launch per slot and evaluation; ms per
+   logp+grad of both (50 each).  The pool lane, bench_suite's config 14
+   (64 shards x 16, window 32): two TCP nodes forked from the fork
+   server, each serving the port's ``fed.make_node_compute`` of its
+   per-shard logp on the card; ``fed.program(model, PoolPlacement)``
+   against the direct ``evaluate_many`` fan-out (1e-4 relative), one
+   ``fed.fused_window`` per evaluation, two independent ``fed_map``
+   calls in one window, ``reduce=True`` through one
+   ``fed.reduce_window`` within float32 rounding; shard evaluations per
+   second of the program and of the direct lane, interleaved best of 3
+   (recorded, not gated).  The mixed lane, 16 of the 64 shards on the
+   pool, within float32 rounding of the all-mesh program; ``fedavg``, 50
+   rounds over the 4 slots, against ``mesh=None`` bit for bit.
 
 Phases 10-19, 27, 29 and 31 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
@@ -407,7 +428,8 @@ phase (the reference posterior) and phases 20-25, with ``--only slice11``
 the nuts_large phase (the mesh phase's reference posterior) and phases
 26-27, with ``--only slice12`` the nuts_large phase (the multichain
 phase's reference posterior) and phases 28-29, with ``--only slice13``
-the nuts_large phase and phases 30-33;
+the nuts_large phase and phases 30-33, with ``--only slice14`` phase 34
+only;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -549,7 +571,7 @@ PHASE_EXPECTED_S = {
     "tempering": 25, "families": 10, "model_check": 80,
     "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 12, "demos": 40,
     "optim": 15, "mesh": 50, "multichain": 50, "seq": 15,
-    "zero": 5, "parallel_axes": 3, "multihost": 12, "elastic": 20,
+    "zero": 5, "parallel_axes": 3, "multihost": 12, "elastic": 20, "fed": 20,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -1104,26 +1126,58 @@ def _recovered(derived):
 
 NUTS_EAGER_EVALS = 50  # eager batched evaluations timed beside the graphed run
 NUTS_BITS_POINTS = 8  # states at which a replay is held bit for bit against an eager call
-GRAPH_PROFILED_REPLAYS = 10  # replays in the profiler's recording window
-GRAPH_PROFILE_WINDOWS = 3  # windows at most, until one records every expected event
+# The CUDA driver API's kernel node type (CU_GRAPH_NODE_TYPE_KERNEL).
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
 
 
-def _kernel_events_in_window(replay, x, calls):
-    """The linreg kernel's events on the card that a profiler records
-    over ``calls`` replays of ``replay`` at ``x``.  The profiler runs on a
-    schedule: one replay before it starts and two while it warms up
-    (CUPTI's activity buffers being set up), both recording nothing, then
-    a window of ``calls`` replays, each finished before the next step."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+def _graph_kernel_names(cuda_graph):
+    """The function name of every kernel node of a captured CUDA graph,
+    read from the graph itself through the CUDA driver API
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams`` and ``cuFuncGetName`` or
+    ``cuKernelGetName``).  Every replay launches exactly these kernels,
+    so their count is the launches per replay, with no profiler in the
+    way.  ``cuda_graph`` must keep its ``cudaGraph_t``
+    (``CUDAGraph(keep_graph=True)``, as ``graph_batch_logp_and_grad``
+    captures)."""
+    import ctypes
 
-    sched = schedule(wait=1, warmup=2, active=calls, repeat=1)
-    with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
-        for _ in range(3 + calls):
-            replay(x)
-            torch.cuda.synchronize()
-            prof.step()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA and "linreg" in e.name
-               for e in prof.events())
+    lib = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} failed with CUDA driver error {err}")
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                    ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    graph = ctypes.c_void_p(cuda_graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(lib.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        params = KernelNodeParams()
+        check(lib.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params.func:
+            check(lib.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)),
+                  "cuFuncGetName")
+        else:
+            check(lib.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
 
 
 def _graph_points(flat0, chains, dev, seed):
@@ -1139,38 +1193,31 @@ def _graph_check(replay, lg, points, expected, timed=NUTS_EAGER_EVALS):
     batched value+grad called eagerly: its replays held bit for bit
     against eager calls at ``points``; eager calls and replays timed
     (``timed`` of each; no eager timing when 0); and the linreg kernel's
-    launches per replay, counted by the profiler over
-    GRAPH_PROFILED_REPLAYS replays (a replay never reaches the wrapper's
-    host-side counter).
-
-    ``launch_ok`` holds when a recording window saw exactly ``expected``
-    kernel events per replay and no window saw more.  A replay launches
-    the same kernels every time, and the profiler on the GPU host has
-    been seen to drop an event from a window without a schedule (9 of
-    10), never to add one; a window that sees fewer is recorded and
-    another is taken, up to GRAPH_PROFILE_WINDOWS in all."""
+    launches per replay, counted as the kernel nodes of the captured
+    graph itself (a replay never reaches the wrapper's host-side
+    counter).  ``launch_ok`` holds when that count is exactly
+    ``expected``.  ``gate_s`` is what the check costs."""
+    t0 = time.perf_counter()
     bits = True
     for x in points:
         (v0, g0), (v1, g1) = lg(x), replay(x)
         bits &= torch.equal(v0, v1) and torch.equal(g0, g1)
-    want = expected * GRAPH_PROFILED_REPLAYS
-    seen = []
-    for _ in range(GRAPH_PROFILE_WINDOWS):
-        seen.append(_kernel_events_in_window(replay, points[0], GRAPH_PROFILED_REPLAYS))
-        if seen[-1] >= want:
-            break
-    launch_ok = seen[-1] == want and max(seen) <= want
+    t1 = time.perf_counter()
+    names = _graph_kernel_names(replay.cuda_graph)
+    per_replay = sum("linreg" in n for n in names)
+    count_s = time.perf_counter() - t1
     dev = points.device
     out = {"replay_bits_equal_eager": bits, "bits_points": len(points),
-           "kernel_launches_per_replay": expected if launch_ok else None,
+           "kernel_launches_per_replay": per_replay,
            "expected_launches_per_replay": expected,
-           "kernel_events_seen": seen, "replays_per_window": GRAPH_PROFILED_REPLAYS,
-           "launch_ok": launch_ok,
+           "graph_kernel_nodes": len(names), "launch_ok": per_replay == expected,
+           "count_s": count_s,
            "replay_ms_per_batched_eval": _ms_per_eval(lambda: replay(points[0]), dev,
                                                       max(timed, 5))}
     if timed:
         out.update(eager_ms_per_batched_eval=_ms_per_eval(lambda: lg(points[0]), dev, timed),
                    eager_evals_timed=timed)
+    out["gate_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1178,20 +1225,20 @@ def _graphed_launches(graph, host_launches, replays):
     """The linreg kernel's launches over a run that replayed a CUDA
     graph: its eager calls (the graph's three warm-up calls) launch on
     the card and count on the host; its capture counts a call's launches
-    on the host and launches nothing; each replay launches the
-    profiler's count per replay."""
+    on the host and launches nothing; each replay launches the graph's
+    kernel nodes."""
     per_replay = graph["expected_launches_per_replay"]
-    return host_launches - per_replay + (graph["kernel_launches_per_replay"] or 0) * replays
+    return host_launches - per_replay + graph["kernel_launches_per_replay"] * replays
 
 
 def phase_nuts(name, n_obs, chains, warmup, draws, dense_mass, seed=7, dev="cuda"):
     """NUTS through the kernel, its batched evaluation replayed from a
     CUDA graph (``sample(cuda_graph=True)``).  A replay never reaches the
     kernel wrapper's host-side launch counter, so the launch gate reads
-    the profiler: after the run, the run's own graph (``extra["graph"]``)
-    is replayed under the profiler and must launch the kernel exactly
-    once per replay; its replays are held bit for bit against eager calls
-    at the same states, and eager calls and replays are timed.  The
+    the graph: after the run, the run's own graph (``extra["graph"]``)
+    must hold exactly one kernel node of the linreg kernel (one launch
+    per replay); its replays are held bit for bit against eager calls at
+    the same states, and eager calls and replays are timed.  The
     phase's launches are that count times the run's replays plus the
     graph's eager warm-up launches."""
     import pytensor_federated_torch as pft
@@ -5272,7 +5319,7 @@ def phase_multichain(nuts_line, dev="cuda", n_obs=LARGE_PATH[1], nuts=MULTICHAIN
 
     # Chain and temperature sharding against the same runs unsharded.
     # The sample and chees runs go through the kernel; the launches of
-    # the graphed sample runs are the profiler's count per replay times
+    # the graphed sample runs are the graph's count per replay times
     # the replays (see phase_nuts), those of the eager chees runs the
     # wrapper's count.
     sharding = NamedSharding(pft.make_mesh({"chains": 2}, devices=[card] * 2), "chains")
@@ -6136,11 +6183,351 @@ def phase_elastic(dev="cuda", n_obs=FLAGSHIP[1], ck=CHECKPOINT):
     }
 
 
+# fed (slice 14): one federated model over a mesh, a node pool and both.
+# The mesh lane: the flagship's data term at 8 x 131,072 through the
+# kernel as FederatedLogpGrad over {"shards": 4} of the card, against
+# FederatedLogp(linreg_shard_logp, mesh=same) at FED_POINTS seeded
+# points and against float64 on the CPU.  The gradients take the same
+# per-slot maps and cotangents in both, so their bits must agree; the
+# values add the shards in different orders (fed_sum adds the eight
+# per-shard values, FederatedLogp each slot's two first), so each must
+# lie within float32 rounding of the float64 value (MODEL_VALUE_RTOL).
+# The pool lane: bench_suite.py's config 14 (64 shards x 16, window 32,
+# 1751-1870) over two TCP nodes on the card; its equality gate (1e-4
+# relative against the direct evaluate_many fan-out) and its rates,
+# interleaved best of FED_RATE_PASSES passes of FED_RATE_BUDGET_S each
+# (recorded, not gated; the JAX package accepted >= 0.9x).  The mixed
+# lane at the pool lane's shapes, FED_POOL_SHARDS of them on the pool,
+# against the all-mesh program; fedavg over 4 slots against mesh=None,
+# bit for bit (the same sums in the same order).
+SLICE14 = ("fed",)
+FED_SLOTS = 4
+FED_POINTS = 8
+FED_TIMED_EVALS = 50
+FED_C14 = dict(n_shards=64, dim=16, window=32, seed=14)
+FED_POOL_SHARDS = 16
+FED_RATE_BUDGET_S, FED_RATE_PASSES = 1.0, 3
+FED_C14_RTOL = 1e-4  # config 14's equality gate
+FED_F32_RTOL, FED_F32_GTOL = 1e-5, 1e-4  # the JAX fed tests' float32 tolerances
+FEDAVG = dict(rounds=50, local_steps=5, learning_rate=0.1)
+
+
+def _c14_shard_logp(p, xs, ys):
+    """bench_suite config 14's per-shard logp."""
+    return -torch.sum((ys - p[0] - p[1] * xs) ** 2)
+
+
+def _fed_c14_node(dev, conn):
+    """One config-14 node: the port's ``fed.make_node_compute`` of the
+    per-shard logp on ``dev``, served with ``serve_tcp_once``.  Answers
+    the driver's commands on ``conn`` with its requests since the last
+    ``reset``."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from pytensor_federated_torch import fed
+        from pytensor_federated_torch.service import serve_tcp_once
+
+        if dev == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("fed node found no GPU")
+        base = fed.make_node_compute(_c14_shard_logp, device=dev)
+        lock, count, bound, ports = threading.Lock(), [0], threading.Event(), []
+
+        def compute(*arrays):
+            with lock:
+                count[0] += 1
+            return base(*arrays)
+
+        threading.Thread(target=serve_tcp_once, args=(compute,), daemon=True,
+                         kwargs={"port": 0, "concurrent": True,
+                                 "ready_callback": lambda p: (ports.append(p), bound.set())}
+                         ).start()
+        if not bound.wait(60):
+            raise RuntimeError("fed node did not bind a port")
+        conn.send({"port": ports[0], "pid": os.getpid(),
+                   "device": torch.cuda.get_device_name() if dev == "cuda" else "cpu"})
+        base_count = 0
+        while True:
+            cmd = conn.recv()
+            with lock:
+                cur = count[0]
+            if cmd == "reset":
+                base_count = cur
+            conn.send({"requests": cur - base_count})
+            if cmd == "stop":
+                return
+    except Exception:
+        conn.send({"error": traceback.format_exc()})
+
+
+def _fed_mesh_lane(card, n_obs, slots, points, timed):
+    """The mesh lane through the kernel: FederatedLogpGrad against
+    FederatedLogp on the same mesh and against float64 on the CPU;
+    launches per evaluation; ms per logp+grad of both."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch import fed
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions, linreg_shard_logp
+    from pytensor_federated_torch.utils import tree_map, value_and_grad
+
+    tree = _kernel_flagship(card, n_obs)
+    tree64 = tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), tree)
+    mesh = pft.make_mesh({"shards": slots}, devices=[card] * slots)
+    ev = fed.FederatedLogpGrad(linreg_shard_logp, tree, placement=fed.MeshPlacement(mesh),
+                               device=card)
+    fl = pft.FederatedLogp(linreg_shard_logp, tree, mesh=mesh)
+    fl64 = pft.FederatedLogp(linreg_shard_logp, tree64)
+    g = torch.Generator(device="cpu").manual_seed(14)
+    base = {"intercept": 1.5, "slope": 2.0, "log_sigma": math.log(0.5)}
+    pts = []
+    for _ in range(points):
+        p = {k: torch.tensor(v + 0.05 * float(torch.randn((), generator=g))) for k, v in base.items()}
+        p["offsets"] = 0.3 * torch.randn(8, generator=g)
+        pts.append(p)
+    ev.logp_and_grad(tree_map(lambda t: t.to(card), pts[0]))  # records the program
+    _sync(card)
+    linreg_reductions.launches = 0
+    rows = []
+    for p in pts:
+        pc = tree_map(lambda t: t.to(card), p)
+        before = linreg_reductions.launches
+        v, (gr,) = ev.logp_and_grad(pc)
+        _sync(card)
+        launches = linreg_reductions.launches - before
+        v_fl, g_fl = value_and_grad(fl.logp, pc)
+        v64, g64 = value_and_grad(fl64.logp, tree_map(lambda t: t.double(), p))
+        rows.append({
+            "launches": launches, "value_bits_equal": torch.equal(v, v_fl),
+            "grad_bits_equal": all(torch.equal(gr[k], g_fl[k]) for k in gr),
+            "value_rel_err_f64": abs(float(v) - float(v64)) / abs(float(v64)),
+            "federated_logp_value_rel_err_f64": abs(float(v_fl) - float(v64)) / abs(float(v64)),
+            "grad_err_over_tol_f64": _err_over_tol(gr, g64, MODEL_GRAD_RTOL,
+                                                   MODEL_GRAD_ATOL_OF_MAX),
+        })
+    p0 = tree_map(lambda t: t.to(card), pts[0])
+    ms = {"fed": _ms_per_eval(lambda: ev.logp_and_grad(p0), card, timed),
+          "federated_logp": _ms_per_eval(lambda: value_and_grad(fl.logp, p0), card, timed)}
+    _sync(card)
+    launches = linreg_reductions.launches
+    on_card = card.type == "cuda"
+    gates = {
+        "grad_bits_equal_federated_logp": all(r["grad_bits_equal"] for r in rows),
+        "values_within_f32_of_f64": all(
+            r["value_rel_err_f64"] <= MODEL_VALUE_RTOL
+            and r["federated_logp_value_rel_err_f64"] <= MODEL_VALUE_RTOL for r in rows),
+        "grads_against_f64": all(r["grad_err_over_tol_f64"] <= 1.0 for r in rows),
+        "one_launch_per_slot": all(r["launches"] == slots for r in rows) if on_card else True,
+    }
+    return gates, {
+        "size": [8, n_obs], "slots": slots, "points": rows,
+        "value_bits_equal_points": sum(r["value_bits_equal"] for r in rows),
+        "ms_per_logp_and_grad": ms, "timed_evals": timed, "kernel_launches": launches,
+    }
+
+
+def _fed_pool_lanes(card, client, mesh, c14):
+    """Config 14 through fed.program(PoolPlacement) against the direct
+    evaluate_many fan-out; one window per evaluation; two maps in one
+    window; reduce=True; the mixed lane; the rates."""
+    import numpy as np
+
+    from pytensor_federated_torch import fed
+    from pytensor_federated_torch.telemetry import flightrec, spans
+
+    n, window = c14["n_shards"], c14["window"]
+    rng = np.random.default_rng(c14["seed"])
+    x_np = rng.normal(size=(n, c14["dim"])).astype(np.float32)
+    y_np = rng.normal(size=(n, c14["dim"])).astype(np.float32)
+    p_np = np.float32([0.3, -0.8])
+    x, y, p = (torch.as_tensor(a, device=card) for a in (x_np, y_np, p_np))
+
+    def model(q):
+        pb = fed.fed_broadcast(q, n)
+        return fed.fed_sum(fed.fed_map(lambda s: _c14_shard_logp(s[0], s[1], s[2]), (pb, x, y)))
+
+    def two_maps(q):
+        pb = fed.fed_broadcast(q, n)
+        a = fed.fed_sum(fed.fed_map(lambda s: _c14_shard_logp(*s), (pb, x, y)))
+        return a + fed.fed_sum(fed.fed_map(lambda s: _c14_shard_logp(*s), (pb, x + 0.5, y)))
+
+    requests = [(p_np, x_np[i], y_np[i]) for i in range(n)]
+
+    def direct_eval():
+        replies = client.evaluate_many(requests, window=window)
+        return float(np.sum([r[0] for r in replies]))
+
+    def value_and_grad(run):
+        q = p.clone().requires_grad_(True)
+        v = run(q)
+        (gq,) = torch.autograd.grad(v, q)
+        return float(v), gq.cpu().numpy()
+
+    run = fed.program(model, fed.PoolPlacement(client, window=window))
+    v_prog, v_direct = float(run(p)), direct_eval()  # warms both lanes and records
+    prev = spans.set_enabled(True), flightrec.set_enabled(True)
+    try:
+        flightrec.clear()
+        evals = 5
+        for _ in range(evals):
+            value_and_grad(run)
+        windows = [e for e in flightrec.events() if e["kind"] == "fed.fused_window"]
+        flightrec.clear()
+        v_two = float(fed.program(two_maps, fed.PoolPlacement(client, window=window))(p))
+        two = [e for e in flightrec.events() if e["kind"] == "fed.fused_window"]
+        vg = value_and_grad(run)
+        flightrec.clear()
+        vg_reduced = value_and_grad(fed.program(
+            model, fed.PoolPlacement(client, window=window, reduce=True)))
+        reduced = sorted({e["kind"] for e in flightrec.events() if e["kind"].startswith("fed.")})
+    finally:
+        spans.set_enabled(prev[0])
+        flightrec.set_enabled(prev[1])
+    vg_mixed = value_and_grad(fed.program(model, fed.MixedPlacement(
+        fed.MeshPlacement(mesh), fed.PoolPlacement(client, window=window),
+        pool_shards=FED_POOL_SHARDS)))
+    vg_mesh = value_and_grad(fed.program(model, fed.MeshPlacement(mesh)))
+    v_two_direct = direct_eval() + float(np.sum([r[0] for r in client.evaluate_many(
+        [(p_np, x_np[i] + np.float32(0.5), y_np[i]) for i in range(n)], window=window)]))
+
+    def rate_once(fn):
+        t0, k = time.perf_counter(), 0
+        while time.perf_counter() - t0 < FED_RATE_BUDGET_S:
+            fn()
+            k += n
+        return k / (time.perf_counter() - t0)
+
+    rates_direct, rates_prog = [], []
+    for _ in range(FED_RATE_PASSES):
+        rates_direct.append(rate_once(direct_eval))
+        rates_prog.append(rate_once(lambda: run(p)))
+
+    def close(a, b):
+        return (abs(a[0] - b[0]) <= FED_F32_RTOL * abs(b[0])
+                and bool(np.all(np.abs(a[1] - b[1]) <= FED_F32_GTOL * np.abs(b[1]))))
+
+    gates = {
+        "program_equals_direct": abs(v_prog - v_direct) <= FED_C14_RTOL * max(1.0, abs(v_direct)),
+        "one_window_per_evaluation": len(windows) == evals and all(
+            w["calls"] == 1 and w["requests"] == n for w in windows),
+        "two_maps_one_window": len(two) == 1 and two[0]["calls"] == 2
+        and two[0]["requests"] == 2 * n,
+        "two_maps_equal_direct": abs(v_two - v_two_direct) <= FED_C14_RTOL * abs(v_two_direct),
+        "reduce_one_reduced_window": reduced == ["fed.reduce_window"],
+        "reduce_within_f32": close(vg_reduced, vg),
+        "mixed_within_f32_of_mesh": close(vg_mixed, vg_mesh),
+    }
+    rate_prog, rate_direct = max(rates_prog), max(rates_direct)
+    return gates, {
+        "config": {**c14, "source": "bench_suite.py:1751-1870 (config 14)"},
+        "value": {"program": v_prog, "direct": v_direct, "two_maps": v_two,
+                  "two_maps_direct": v_two_direct},
+        "windows_per_evaluation": len(windows) / evals,
+        "reduce": {"value": vg_reduced[0], "per_shard_value": vg[0],
+                   "grad": vg_reduced[1].tolist(), "per_shard_grad": vg[1].tolist()},
+        "mixed": {"pool_shards": FED_POOL_SHARDS, "value": vg_mixed[0], "mesh_value": vg_mesh[0],
+                  "grad": vg_mixed[1].tolist(), "mesh_grad": vg_mesh[1].tolist()},
+        "shard_evals_per_s": {"program": rate_prog, "direct": rate_direct,
+                              "ratio": rate_prog / rate_direct,
+                              "jax_package_acceptance_ratio": 0.9,
+                              "passes": {"program": rates_prog, "direct": rates_direct}},
+    }
+
+
+def _fedavg_case(card, mesh):
+    """fedavg over the slots of ``mesh`` against mesh=None: the JAX
+    package's test model (tests/test_federated_primitives.py).  The
+    slots' local steps and the weighted mean add in the same order as
+    without a mesh, so the final parameters and the loss history must
+    agree bit for bit (within float32 rounding is recorded too)."""
+    import numpy as np
+
+    from pytensor_federated_torch.parallel import fedavg
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 64)).astype(np.float32)
+    y = (1.0 + 2.0 * x + 0.2 * rng.normal(size=(8, 64))).astype(np.float32)
+    data = tuple(torch.as_tensor(a, device=card) for a in (x, y))
+
+    def mse(params, shard):
+        return torch.mean((shard[1] - (params["a"] + params["b"] * shard[0])) ** 2)
+
+    init = {"a": torch.zeros((), device=card), "b": torch.zeros((), device=card)}
+    runs = {}
+    for name, m in (("no_mesh", None), ("mesh", mesh)):
+        t0 = time.perf_counter()
+        final, history = fedavg(mse, data, init, mesh=m, **FEDAVG)
+        _sync(card)
+        runs[name] = (final, history, time.perf_counter() - t0)
+    (fm, hm, sm), (fo, ho, so) = runs["mesh"], runs["no_mesh"]
+    bits = all(torch.equal(fm[k], fo[k]) for k in fm) and torch.equal(hm, ho)
+    within = (all(abs(float(fm[k]) - float(fo[k])) <= FED_F32_RTOL * abs(float(fo[k])) for k in fm)
+              and bool(torch.all((hm - ho).abs() <= FED_F32_RTOL * ho.abs())))
+    b_ols, a_ols = np.polyfit(x.ravel(), y.ravel(), 1)
+    return {"bits_equal_no_mesh": bits}, {
+        **FEDAVG, "slots": mesh.shape["shards"], "bits_equal_no_mesh": bits,
+        "within_f32_of_no_mesh": within,
+        "final": {k: float(v) for k, v in fm.items()}, "pooled_ols": {"a": a_ols, "b": b_ols},
+        "loss_first_last": [float(hm[0]), float(hm[-1])], "wall_s": {"mesh": sm, "no_mesh": so},
+    }
+
+
+def phase_fed(dev="cuda", n_obs=LARGE_PATH[1], slots=FED_SLOTS, points=FED_POINTS,
+              timed=FED_TIMED_EVALS, c14=FED_C14):
+    """Slice 14, the fed layer: FederatedLogpGrad over a 4-slot mesh of
+    the card through the kernel, config 14 over a pool of two TCP nodes
+    on the card, the mixed placement and fedavg."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.routing import NodePool, PooledArraysClient
+
+    card = torch.device("cuda", 0) if torch.device(dev).type == "cuda" else torch.device("cpu")
+    ctx = _node_context()
+    procs, conns, out = [], [], {"phase": "fed"}
+    pool = client = None
+    try:
+        t0 = time.perf_counter()
+        for _ in range(2):  # the nodes start while the mesh lane runs
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_fed_c14_node, args=(card.type, child), daemon=True)
+            proc.start()
+            procs.append(proc)
+            conns.append(parent)
+        t_mesh = time.perf_counter()
+        mesh_gates, out["mesh"] = _fed_mesh_lane(card, n_obs, slots, points, timed)
+        out["mesh"]["wall_s"] = time.perf_counter() - t_mesh
+        nodes = _fed_ask(conns, None, timeout=300.0)
+        out["spawn_s"] = time.perf_counter() - t0
+        out["nodes"] = [n["device"] for n in nodes]
+        pool = NodePool([("127.0.0.1", n["port"]) for n in nodes], transport="tcp")
+        client = PooledArraysClient(pool)
+        mesh = pft.make_mesh({"shards": slots}, devices=[card] * slots)
+        t_pool = time.perf_counter()
+        _fed_ask(conns, "reset")
+        pool_gates, out["pool"] = _fed_pool_lanes(card, client, mesh, c14)
+        out["pool"]["node_requests"] = [r["requests"] for r in _fed_ask(conns, "counts")]
+        out["pool"]["wall_s"] = time.perf_counter() - t_pool
+        t_avg = time.perf_counter()
+        avg_gates, out["fedavg"] = _fedavg_case(card, mesh)
+        out["fedavg"]["phase_wall_s"] = time.perf_counter() - t_avg
+        _fed_ask(conns, "stop")
+    finally:
+        if client is not None:
+            client.close()
+            pool.close()
+        for proc in procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    out["kernel_launches"] = out["mesh"]["kernel_launches"]
+    out["gates"] = {**{f"mesh.{k}": v for k, v in mesh_gates.items()},
+                    **{f"pool.{k}": v for k, v in pool_gates.items()},
+                    "fedavg.bits_equal_no_mesh": avg_gates["bits_equal_no_mesh"]}
+    return all(out["gates"].values()), out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
                                            "slice7", "slice8", "slice9", "slice10", "slice11",
-                                           "slice12", "slice13"],
+                                           "slice12", "slice13", "slice14"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
@@ -6152,7 +6539,8 @@ def main() -> int:
                              "checkpoint and demos only; slice11: device, build, nuts_large, "
                              "optim and mesh only; slice12: device, build, nuts_large, "
                              "multichain and seq only; slice13: device, build, nuts_large, "
-                             "zero, parallel_axes, multihost and elastic only")
+                             "zero, parallel_axes, multihost and elastic only; slice14: "
+                             "device, build and fed only")
     parser.add_argument("--multichain-seeds", default=",".join(map(str, MULTICHAIN_SEEDS)),
                         type=lambda v: tuple(int(x) for x in v.split(",")),
                         help="comma-separated seeds of the multichain phase's NUTS runs, "
@@ -6232,6 +6620,7 @@ def main() -> int:
         ("parallel_axes", phase_parallel_axes),
         ("multihost", phase_multihost),
         ("elastic", phase_elastic),
+        ("fed", phase_fed),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -6258,6 +6647,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("nuts_large", "multichain", "seq")]
     elif args.only == "slice13":
         phases = [ph for ph in phases if ph[0] in ("nuts_large",) + SLICE13]
+    elif args.only == "slice14":
+        phases = [ph for ph in phases if ph[0] in SLICE14]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -6315,17 +6706,18 @@ def main() -> int:
         # against float64 excluded; in the optim phase, by the owner
         # nodes over both sharded runs, the driver-centric control
         # excluded; in the nuts, nuts_large and multichain phases, whose
-        # NUTS runs replay a CUDA graph, the profiler's launches per
+        # NUTS runs replay a CUDA graph, the graph's launches per
         # replay times the replays plus the graph's eager warm-up calls;
         # in the zero phase over the whole flagship case, the gate
         # evaluations, the sharded loops and the replicated loops they
         # are held against; in the multihost phase by rank 0 to the end
         # of its work and by rank 1 through its timed evaluations, its
         # work loop until the SIGKILL not read; in the elastic phase over
-        # its three runs).
+        # its three runs; in the fed phase over the mesh lane's gate and
+        # timed evaluations, FederatedLogpGrad's and FederatedLogp's).
         "launches": sum(lines[p].get("kernel_launches", 0)
                         for p in ("nuts", "nuts_large", "pool", "gateway", "optim", "multichain")
-                        + SLICE10 + SLICE13)
+                        + SLICE10 + SLICE13 + SLICE14)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

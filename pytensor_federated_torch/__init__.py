@@ -17,8 +17,9 @@ that resumes bit for bit (:func:`sample_checkpointed`).  The shards axis
 spreads over a single-controller device mesh (:func:`make_mesh`), and
 :mod:`.diagnostics` counts, times and profiles evaluations.  The
 sharded optimizer (:mod:`.optim`) keeps Adam's state on the pool's
-nodes, one shard each.  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+nodes, one shard each.  :mod:`.fed` runs one federated model over a
+mesh, a node pool or both (``fed.program``).  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 
 The federation wire: a node serves its logp+grad over npwire frames on
 gRPC or TCP (:mod:`.service`), byte for byte the JAX package's frames,
@@ -28,7 +29,7 @@ package imports neither JAX nor the JAX package, and it imports
 ``grpc`` only at the first gRPC call.
 """
 
-from . import diagnostics, flopcount, precision, samplers
+from . import diagnostics, fed, flopcount, precision, samplers
 from .checkpoint import load_pytree, sample_checkpointed, save_pytree
 from .convert import params_from_jax, sharded_data_from_jax
 from .diagnostics import instrument_logp, profile_trace
@@ -119,6 +120,7 @@ __all__ = [
     "blackbox_compute",
     "blackbox_logp_grad",
     "diagnostics",
+    "fed",
     "flopcount",
     "from_logp_fn",
     "fuse",

@@ -70,3 +70,68 @@ from .survival import (
     weibull_censored_loglik,
 )
 from .timeseries import SeqShardedAR1, generate_ar1_data
+
+__all__ = [
+    "FederatedGammaGLM",
+    "FederatedGaussianMixture",
+    "FederatedSoftmaxRegression",
+    "HierarchicalSoftmaxRegression",
+    "generate_hier_multinomial_data",
+    "generate_multinomial_data",
+    "FederatedExactGP",
+    "FederatedNegBinGLM",
+    "FederatedOrdinalRegression",
+    "FederatedPoissonGLM",
+    "FederatedZeroInflNegBinGLM",
+    "FederatedZeroInflPoissonGLM",
+    "FederatedRobustRegression",
+    "FederatedSparseGP",
+    "FederatedWeibullAFT",
+    "cumulative_logit_loglik",
+    "gamma_logpdf",
+    "generate_count_data",
+    "generate_zi_count_data",
+    "get_kernel",
+    "generate_gamma_data",
+    "generate_mixture_data",
+    "mixture_loglik",
+    "generate_ordinal_data",
+    "generate_robust_data",
+    "generate_survival_data",
+    "weibull_censored_loglik",
+    "student_t_logpdf",
+    "SeqShardedAR1",
+    "FederatedLGSSMPanel",
+    "SeqShardedLGSSM",
+    "generate_lgssm_data",
+    "ekf_logp",
+    "kalman_forecast",
+    "kalman_logp_parallel",
+    "kalman_logp_seq",
+    "kalman_smoother_parallel",
+    "kalman_smoother_seq",
+    "kalman_smoother_with_lag1",
+    "lgssm_em",
+    "panel_em",
+    "sample_latents",
+    "dense_vfe_logp",
+    "generate_ar1_data",
+    "generate_gp_data",
+    "FederatedLinearRegression",
+    "FederatedLogisticRegression",
+    "HierarchicalLogisticRegression",
+    "HierarchicalRadonGLM",
+    "LotkaVolterraModel",
+    "generate_hier_logistic_data",
+    "generate_logistic_data",
+    "generate_lv_data",
+    "generate_node_data",
+    "generate_radon_data",
+    "make_lv_model",
+    "rk4_integrate",
+    # Port only: the base class and helpers the GLM families share, and the flagship's sufficient statistics.
+    "HierarchicalGLMBase",
+    "linear_predictor",
+    "linreg_suffstats",
+    "log_halfnormal_draw",
+]

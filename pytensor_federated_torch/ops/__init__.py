@@ -14,3 +14,22 @@ from .ops import (
     LogpOp,
     from_logp_fn,
 )
+
+__all__ = [
+    "ArraysToArraysOp",
+    "AsyncArraysToArraysOp",
+    "AsyncLogpGradOp",
+    "AsyncLogpOp",
+    "LogpGradOp",
+    "LogpOp",
+    "ParallelLogpGrad",
+    "blackbox_compute",
+    "blackbox_logp_grad",
+    "from_logp_fn",
+    "fuse",
+    "linreg_logp_grad_fn",
+    "linreg_reductions",
+    "parallel_host_call",
+    # Port only: the kernel's plain PyTorch version.
+    "linreg_reductions_ref",
+]

@@ -1,5 +1,6 @@
-"""Mesh, shard packing, the sharded evaluator, the ring collectives,
-the ZeRO, tensor, expert and Ulysses axes, and the multi-process layer."""
+"""Mesh, shard packing, the sharded evaluator, the federated MapReduce
+API and FedAvg, the ring collectives, the ZeRO, tensor, expert and
+Ulysses axes, and the multi-process layer."""
 
 from .mesh import (
     CHAINS_AXIS,
@@ -14,6 +15,13 @@ from .mesh import (
     single_device_mesh,
 )
 from .expert import EXPERTS_AXIS, ExpertShardedMixture
+from .federated import (
+    fedavg,
+    federated_broadcast,
+    federated_map,
+    federated_mean,
+    federated_sum,
+)
 from .multihost import (
     HeartbeatServer,
     detect_dead_peers,
@@ -53,6 +61,11 @@ __all__ = [
     "TensorParallelLogistic",
     "ZeroShardedLogpGrad",
     "detect_dead_peers",
+    "fedavg",
+    "federated_broadcast",
+    "federated_map",
+    "federated_mean",
+    "federated_sum",
     "get_load",
     "heads_to_seq",
     "healthy_devices",

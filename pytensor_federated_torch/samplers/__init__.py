@@ -58,3 +58,80 @@ from .util import (
     welford_update,
     welford_variance,
 )
+
+__all__ = [
+    "ADVIResult",
+    "AdaptSchedule",
+    "EnsembleResult",
+    "LaplaceResult",
+    "PathfinderResult",
+    "SGLDResult",
+    "SMCResult",
+    "advi_fit",
+    "fullrank_advi_fit",
+    "FullRankADVIResult",
+    "FlowADVIResult",
+    "realnvp_advi_fit",
+    "SBCResult",
+    "sbc_ranks",
+    "sbc_uniformity",
+    "ensemble_sample",
+    "smc_sample",
+    "HMCState",
+    "NUTSInfo",
+    "SampleResult",
+    "effective_sample_size",
+    "find_map",
+    "find_reasonable_step_size",
+    "laplace_approximation",
+    "multipath_pathfinder",
+    "pathfinder",
+    "polynomial_decay",
+    "psgld_sample",
+    "sghmc_sample",
+    "sgld_sample",
+    "flatten_logp",
+    "split_rhat",
+    "hdi",
+    "summary",
+    "tail_ess",
+    "hmc_init",
+    "hmc_step",
+    "leapfrog",
+    "metropolis_init",
+    "metropolis_step",
+    "nuts_step",
+    "chees_sample",
+    "elastic_sample",
+    "pt_sample",
+    "compare",
+    "to_dataset_dict",
+    "to_inference_data",
+    "pointwise_loglik_matrix",
+    "posterior_predictive",
+    "psis_loo",
+    "waic",
+    "prior_predictive",
+    "sample",
+    # Port only: the samplers' state types, the NUTS draws that tests inject, and the flat-vector and adaptation helpers.
+    "DualAveragingState",
+    "HMCInfo",
+    "IntegratorState",
+    "MetropolisState",
+    "NUTSDraws",
+    "WelfordState",
+    "da_init",
+    "da_update",
+    "draw_nuts",
+    "kinetic_energy",
+    "make_batch_logp_and_grad",
+    "make_flat_logp_and_grad",
+    "make_kernel_step",
+    "ravel",
+    "ravel_batch",
+    "sample_momentum",
+    "welford_covariance",
+    "welford_init",
+    "welford_update",
+    "welford_variance",
+]

@@ -181,7 +181,11 @@ def graph_batch_logp_and_grad(lg: Callable, example: torch.Tensor) -> Callable:
     shape or dtype run ``lg`` itself.  ``replay.calls`` counts the
     replays.  Needs CUDA, and an ``lg`` with no host sync and no
     data-dependent shape (the capture refuses both); the linreg kernel's
-    launch counter, a host-side count, would see only the capture."""
+    launch counter, a host-side count, would see only the capture.
+    ``replay.cuda_graph`` is the captured ``torch.cuda.CUDAGraph``, kept
+    with its ``cudaGraph_t`` (``keep_graph=True``), so that its nodes —
+    the kernels every replay launches — can be read from the graph
+    itself."""
     if example.device.type != "cuda":
         raise ValueError("cuda_graph=True needs the chains on a CUDA device")
     static_x = example.detach().clone()
@@ -192,7 +196,7 @@ def graph_batch_logp_and_grad(lg: Callable, example: torch.Tensor) -> Callable:
         for _ in range(3):  # autograd and the allocator settle before the capture
             lg(static_x)
     stream.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     # An earlier graph that is garbage (``replay`` below is a reference
     # cycle, freed only by the cyclic collector) must not be freed during
     # the capture: its reset there invalidates the capture.  Collect it
@@ -206,6 +210,7 @@ def graph_batch_logp_and_grad(lg: Callable, example: torch.Tensor) -> Callable:
     finally:
         if gc_was_enabled:
             gc.enable()
+    graph.instantiate()
 
     def replay(x):
         if x.shape != static_x.shape or x.dtype != static_x.dtype:
@@ -216,6 +221,7 @@ def graph_batch_logp_and_grad(lg: Callable, example: torch.Tensor) -> Callable:
         return static_v.clone(), static_g.clone()
 
     replay.calls = 0
+    replay.cuda_graph = graph
     return replay
 
 

@@ -1229,3 +1229,44 @@ def test_shard_vmap_rule_launches_once_per_slot_block():
     torch.cuda.synchronize()
     assert linreg_reductions.launches == 4 and torch.equal(sg.logp, v)
     assert [s.device for s in sg.grad_slices] == [torch.device("cuda", 0)] * 4
+
+
+@pytest.mark.gpu
+def test_graph_launch_gate_counts_the_graphs_own_kernel_nodes():
+    """``chip_smoke.py``'s graph launch gate counts the kernel nodes of the
+    captured graph itself: a graph whose capture launches the kernel
+    twice holds two, so the gate expecting one per replay fails, and the
+    gate expecting two passes, with the replays' bits equal to eager
+    calls either way."""
+    import importlib.util
+    from pathlib import Path
+
+    from pytensor_federated_torch.samplers.mcmc import graph_batch_logp_and_grad
+
+    dev = _cuda()
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    scalars, offsets, x, y, mask = _case(8, 4096, dev)
+    kern = linreg_logp_grad_fn(x, y, mask)
+
+    def twice(flat):
+        # Two evaluations of the kernel per call: a replay launches two.
+        def logp(v):
+            p = {"intercept": v[0], "slope": v[1], "log_sigma": v[2], "offsets": v[3:]}
+            return kern.data_logp(p) + 0.5 * kern.data_logp(p)
+
+        v = flat[0].detach().requires_grad_(True)
+        value = logp(v)
+        (g,) = torch.autograd.grad(value, v)
+        return value.detach()[None], g[None]
+
+    flat0 = torch.cat([scalars, offsets])[None]
+    replay = graph_batch_logp_and_grad(twice, flat0)
+    points = flat0 + 0.01 * torch.randn((3,) + tuple(flat0.shape), device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(1))
+    wrong = chip_smoke._graph_check(replay, twice, points, expected=1, timed=0)
+    right = chip_smoke._graph_check(replay, twice, points, expected=2, timed=0)
+    assert wrong["kernel_launches_per_replay"] == 2 and not wrong["launch_ok"]
+    assert right["launch_ok"] and right["replay_bits_equal_eager"]

@@ -21,7 +21,8 @@ SUBPACKAGES = (
     "service", "telemetry", "faultinject", "routing", "ops", "signatures",
     "wrappers", "fanout_exec", "models", "parallel", "samplers", "precision",
     "flopcount", "_assoc_scan", "gateway", "ppl", "checkpoint", "demos", "demos.demo_node",
-    "demos.demo_model", "optim", "diagnostics",
+    "demos.demo_model", "optim", "diagnostics", "fed", "fed.primitives", "fed.placements",
+    "fed.lowering", "fed.batching", "bridge", "bridge.grouping", "parallel.federated",
 )
 
 
@@ -215,14 +216,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: pft.healthy_devices(),
         lambda: pft.diagnostics.log_device_load(),
         lambda: pft.models.SeqShardedAR1(torch.zeros(4).numpy()),
+        lambda: pft.fed.FederatedLogpGrad(lambda p, d: d.sum(), torch.zeros(2, 3).numpy()),
+        lambda: pft.fed.make_node_compute(lambda p: p.sum()),
     ],
     ids=["generate_lgssm_data", "default_lgssm_params", "generate_gp_data", "FederatedLGSSMPanel",
          "peak_flops", "demo_node.make_node_compute", "demo_model.run_local", "make_mesh",
          "make_mesh_shape", "single_device_mesh", "get_load", "healthy_devices",
-         "log_device_load", "SeqShardedAR1"],
+         "log_device_load", "SeqShardedAR1", "FederatedLogpGrad", "fed.make_node_compute"],
 )
 def test_new_entry_points_default_to_cuda(monkeypatch, call):
-    """The state-space, GP, FLOP, demo and mesh entry points ask for CUDA
+    """The state-space, GP, FLOP, demo, mesh and ``fed`` entry points ask for CUDA
     without ``device=`` (a mesh, without ``devices=``) and raise when
     there is none: no mesh is built on the CPU by default."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -234,7 +237,6 @@ def test_new_entry_points_default_to_cuda(monkeypatch, call):
 #: with the ROADMAP Queue 1 item that ports it.
 UNPORTED_TOP_LEVEL = {
     "__version__": "item 6 (version.py)",
-    "fed": "item 5 (fed/)",
     "ppl": "item 5 (ppl/: only ppl/elbo.py is ported)",
 }
 #: Top-level names of the port that the JAX package's __init__ does not
@@ -274,13 +276,9 @@ def test_top_level_all_is_the_jax_packages_minus_the_unported():
 
 
 #: Names of the JAX package's ``parallel/__init__.py`` whose module the
-#: port does not have yet: ``parallel/federated.py`` binds the ``fed/``
-#: primitives (ROADMAP Queue 1 item 5).  Every other module is ported.
-UNPORTED_PARALLEL = {
-    "fedavg": "federated.py", "federated_broadcast": "federated.py",
-    "federated_map": "federated.py", "federated_mean": "federated.py",
-    "federated_sum": "federated.py",
-}
+#: port does not have yet: none, since ``parallel/federated.py`` landed
+#: with ``fed/``.
+UNPORTED_PARALLEL: dict = {}
 #: Names of the port's ``parallel`` that the JAX package's does not
 #: export (its mesh is ``jax.sharding.Mesh``; ``NamedSharding`` comes
 #: from ``jax.sharding`` there).
@@ -289,9 +287,9 @@ PORT_ONLY_PARALLEL = {"Mesh", "NamedSharding", "NoFederatedShards"}
 
 def test_parallel_all_is_the_jax_packages_minus_the_unported():
     """The port's ``parallel.__all__`` is the JAX package's, ZeRO,
-    tensor, expert, Ulysses and the multi-process layer included, less
-    exactly ``fedavg`` and the four ``federated_*`` names, plus the
-    port's own; every name resolves."""
+    tensor, expert, Ulysses, the multi-process layer, ``fedavg`` and the
+    four ``federated_*`` names included, plus the port's own; every name
+    resolves."""
     jax_all = _all_of(ROOT / "pytensor_federated_tpu" / "parallel" / "__init__.py")
     port_all = _all_of(ROOT / "pytensor_federated_torch" / "parallel" / "__init__.py")
     assert len(port_all) == len(set(port_all))
@@ -300,10 +298,58 @@ def test_parallel_all_is_the_jax_packages_minus_the_unported():
     assert [n for n in port_all if not hasattr(pft.parallel, n)] == []
 
 
+#: Names that the port's ``models``, ``ops``, ``samplers`` and ``fed``
+#: export beyond the JAX package's ``__all__`` of the same package.
+PORT_ONLY = {
+    "models": {"HierarchicalGLMBase", "linear_predictor", "linreg_suffstats",
+               "log_halfnormal_draw"},
+    "ops": {"linreg_reductions_ref"},
+    "samplers": {
+        "DualAveragingState", "HMCInfo", "IntegratorState", "MetropolisState", "NUTSDraws",
+        "WelfordState", "da_init", "da_update", "draw_nuts", "kinetic_energy",
+        "make_batch_logp_and_grad", "make_flat_logp_and_grad", "make_kernel_step", "ravel",
+        "ravel_batch", "sample_momentum", "welford_covariance", "welford_init",
+        "welford_update", "welford_variance",
+    },
+    "fed": set(),
+}
+
+
+@pytest.mark.parametrize("package", sorted(PORT_ONLY))
+def test_package_all_is_the_jax_packages_plus_the_ports_own(package):
+    """The port's ``__all__`` of ``models``, ``ops``, ``samplers`` and
+    ``fed`` is a literal list: the JAX package's, plus exactly the
+    listed port-only names; every name resolves, and a star import
+    exports exactly that list."""
+    jax_all = _all_of(ROOT / "pytensor_federated_tpu" / package / "__init__.py")
+    port_all = _all_of(ROOT / "pytensor_federated_torch" / package / "__init__.py")
+    assert len(port_all) == len(set(port_all))
+    assert set(jax_all) <= set(port_all)
+    assert set(port_all) - set(jax_all) == PORT_ONLY[package]
+    module = getattr(pft, package)
+    assert [n for n in port_all if not hasattr(module, n)] == []
+    namespace: dict = {}
+    exec(f"from pytensor_federated_torch.{package} import *", namespace)
+    assert set(namespace) - {"__builtins__"} == set(port_all)
+
+
+def test_fed_primitives_are_named_stand_ins():
+    """``fed_map_p``, ``fed_sum_p`` and ``fed_broadcast_p`` carry the JAX
+    primitives' names, and a program graph's nodes point at them."""
+    from pytensor_federated_torch import fed
+
+    assert [p.name for p in (fed.fed_map_p, fed.fed_sum_p, fed.fed_broadcast_p)] == [
+        "fed_map", "fed_sum", "fed_broadcast"]
+    assert fed.fed_map_p.multiple_results
+    with pytest.raises(TypeError, match="target of a fed program"):
+        fed.fed_sum_p(torch.zeros(2))
+
+
 #: The modules of the rest of the parallel layer and elastic sampling.
 PARALLEL_MODULES = (
     "parallel.zero", "parallel.tensor", "parallel.expert", "parallel.ulysses",
-    "parallel.multihost", "parallel._collectives", "samplers.elastic",
+    "parallel.multihost", "parallel._collectives", "samplers.elastic", "parallel.federated",
+    "fed",
 )
 
 

@@ -14,7 +14,10 @@ JAX package's, and a real two-process ``torch.distributed`` run.
   both ranks report the same bits, equal to one process driving all 8
   slots, and the gradient equals the unsharded one (rtol 1e-6, float32:
   not x2, not x1/2); a gradient through ``sharded_compute``'s gathered
-  outputs equals the 8-slot mesh's too.  Rank 1 is then SIGKILLed in its work loop; rank 0
+  outputs equals the 8-slot mesh's too, and so does
+  ``fed.FederatedLogpGrad`` over ``fed.MeshPlacement`` of the same mesh
+  (its value bit for bit, its gradient within float32 rounding).  Rank 1
+  is then SIGKILLed in its work loop; rank 0
   detects the death through its heartbeat probes, remeshes to its own 4
   slots and reproduces the value (rtol 1e-6).  The ranks' code is this
   file's ``__main__``; every wait is bounded and every child is killed
@@ -84,6 +87,7 @@ def _rank_main(rank, coord_port, hb_base):
     import torch
 
     import pytensor_federated_torch as pft
+    from pytensor_federated_torch import fed
     from pytensor_federated_torch.parallel import (
         HeartbeatServer,
         ZeroShardedLogpGrad,
@@ -115,6 +119,11 @@ def _rank_main(rank, coord_port, hb_base):
     zg = z.gather_grad(sg)
     cv, cg = value_and_grad(_compute_loss(pft, tree, mesh), p)
     cv8, cg8 = value_and_grad(_compute_loss(pft, tree, one), p)
+    # The fed program over the same mesh, and over one process's 8 slots.
+    fv, (fg,) = fed.FederatedLogpGrad(linreg_shard_logp, tree, placement=fed.MeshPlacement(mesh),
+                                      device="cpu").logp_and_grad(p)
+    fv8, (fg8,) = fed.FederatedLogpGrad(linreg_shard_logp, tree, placement=fed.MeshPlacement(one),
+                                        device="cpu").logp_and_grad(p)
     zfinal, ztrace = z.sgd_steps(p, learning_rate=1e-4, num_steps=3)
     zfinal8, ztrace8 = z8.sgd_steps(p, learning_rate=1e-4, num_steps=3)
     keys = sorted(g)
@@ -138,6 +147,8 @@ def _rank_main(rank, coord_port, hb_base):
         "compute_grad": {k: _bits(cg[k]) for k in keys},
         "compute_grad_f": {k: cg[k].reshape(-1).tolist() for k in keys},
         "compute_grad8": {k: cg8[k].reshape(-1).tolist() for k in keys},
+        "fed": float(fv).hex(), "fed8": float(fv8).hex(),
+        "fed_grad": {k: _bits(fg[k]) for k in keys}, "fed_grad8": {k: _bits(fg8[k]) for k in keys},
     })
     if rank != 0:
         say("SERVING", {})
@@ -420,6 +431,16 @@ def test_two_gloo_ranks_sum_detect_and_remesh():
             g8 = np.asarray(g8)
             np.testing.assert_allclose(a[0]["compute_grad_f"][k], g8, rtol=1e-6,
                                        atol=1e-6 * float(np.abs(g8).max()))
+        # fed.MeshPlacement: the value's bits on both ranks equal one
+        # process driving all 8 slots; the gradient's bits agree between
+        # the ranks and lie within float32 rounding of that process's
+        # (the processes' sums are added in rank order).
+        assert a[0]["fed"] == a[1]["fed"] == a[0]["fed8"]
+        assert a[0]["fed_grad"] == a[1]["fed_grad"]
+        for k, g8 in a[0]["fed_grad8"].items():
+            g8 = np.asarray([float.fromhex(v) for v in g8])
+            got = np.asarray([float.fromhex(v) for v in a[0]["fed_grad"][k]])
+            np.testing.assert_allclose(got, g8, rtol=1e-6, atol=1e-6 * float(np.abs(g8).max()))
         lines[1].wait("SERVING", 10)
         lines[0].wait("PEER-ALIVE", 10)
         procs[1].send_signal(signal.SIGKILL)
