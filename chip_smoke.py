@@ -20,6 +20,7 @@
     python3 chip_smoke.py --only slice13   # device, build, nuts_large, zero,
                                            # parallel_axes, multihost, elastic
     python3 chip_smoke.py --only slice14   # device, build, fed
+    python3 chip_smoke.py --only slice15   # device, build, ppl, ppl_zero
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -400,8 +401,42 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    (recorded, not gated).  The mixed lane, 16 of the 64 shards on the
    pool, within float32 rounding of the all-mesh program; ``fedavg``, 50
    rounds over the 4 slots, against ``mesh=None`` bit for bit.
+35. ``ppl`` — the ``ppl`` front end, bench_suite's config 20
+   (bench_suite.py:3153-3443) on the card: one effectful radon model
+   (``ppl.make_radon_example(16, seed=12)``, the radon phase's data)
+   compiled with no placement.  Values and gradients at three points
+   against the same model in float64 on the CPU (the radon phase's
+   tolerances) and against ``HierarchicalRadonGLM`` on the same data
+   (values shifted by 2 x 1/2 log(2/pi), the normalizing constants the
+   hand-written model drops; gradients equal); the 4-slot mesh lane
+   against the dense program; ms per logp+grad.  NUTS through
+   ``compiled.logp``, 2 chains x (150 + 150) in lockstep, replayed from a
+   CUDA graph, with the radon phase's gates; ``pt_sample`` over 4
+   temperatures, 100 + 100, its posterior-mean RMSE against NUTS recorded;
+   ``svi_fit``, 1,000 steps, n_mc 8, lr 0.02: the ELBO improves and the
+   global means' RMSE against NUTS is at most 0.35, its wall beside
+   NUTS's.  Two TCP nodes forked from the fork server serve
+   ``compiled.node_compute()`` on the card: one pool window and one
+   reduced window against the dense program; then streaming SVI through
+   a ``GatewayThread`` over them (frame_items 16, tenant "svi"): 4
+   warm-up steps, a deadline of 6 x their median (at least 1 s), 30
+   batches of 8 counties; goodput >= 0.9, optimizer steps == accepted
+   batches, the last third's mean ELBO above the first third's.
+36. ``ppl_zero`` — sharded SVI, config 21 (bench_suite.py:3445-3700) at
+   width 8: ``make_radon_example(64, mean_obs=8, seed=21)``; eight node
+   processes forked from the fork server, each serving the model's
+   ``node_compute()`` (the control's replicas) and a sharded-SVI owner
+   (``make_sharded_update_compute`` over one shared ``ShardStore``) on
+   the card.  The driver-centric ``StreamingSVI`` over a pooled client of
+   the eight, then ``StreamingSVI(sharded=ShardedOptimizer(...))`` over
+   the eight owners, each 3 warm-up steps, one instrumented step (the
+   npwire decode_copy bytes) and 12 timed steps of 16 counties.  Gates:
+   every step accepted; Adam's steps equal the accepted steps (per shard
+   in the sharded run); no reply above ceil(total / 8) elements; the
+   driver-side reply bytes per step at least 4x below the control's.
+   Width 64 (64 node processes) does not run on the card.
 
-Phases 10-19, 27, 29 and 31 launch no kernel of the port: the JAX package computes
+Phases 10-19, 27, 29, 31, 35 and 36 launch no kernel of the port: the JAX package computes
 these models outside Pallas, and so does the port.
 
 Every phase runs under a deadline of three times its expected seconds
@@ -429,7 +464,7 @@ the nuts_large phase (the mesh phase's reference posterior) and phases
 26-27, with ``--only slice12`` the nuts_large phase (the multichain
 phase's reference posterior) and phases 28-29, with ``--only slice13``
 the nuts_large phase and phases 30-33, with ``--only slice14`` phase 34
-only;
+only, with ``--only slice15`` phases 35-36 only;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -572,6 +607,7 @@ PHASE_EXPECTED_S = {
     "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 12, "demos": 40,
     "optim": 15, "mesh": 50, "multichain": 50, "seq": 15,
     "zero": 5, "parallel_axes": 3, "multihost": 12, "elastic": 20, "fed": 20,
+    "ppl": 40, "ppl_zero": 20,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -592,6 +628,18 @@ def _helper_pids() -> set:
     pids = {getattr(resource_tracker._resource_tracker, "_pid", None),
             getattr(forkserver._forkserver, "_forkserver_pid", None)}
     return pids - {None}
+
+
+def _stop_helpers() -> None:
+    """Stop multiprocessing's helper processes (``_helper_pids``) and wait
+    for them: each would exit on its own only once it noticed this
+    process gone, after the script's end."""
+    from multiprocessing import forkserver, resource_tracker
+
+    for helper in (forkserver._forkserver, resource_tracker._resource_tracker):
+        stop = getattr(helper, "_stop", None)
+        if stop is not None:
+            stop()
 
 
 def _node_context():
@@ -846,14 +894,20 @@ def _cuda_launches_per_call(fn, calls=10):
     """Device launches per call of ``fn``, counted by the profiler (the
     kernels, memsets and copies it records on the card), and their
     names; ``None`` when the profiler records no device activity.  A
-    profile that recorded nothing at all is taken again, up to 3 times
-    in all (the profiler on the GPU host now and then returns an empty
-    record; a count of launches that is not zero is never retaken)."""
+    profile that recorded nothing at all, or a count that is not a whole
+    number of launches per call, is taken again, up to 3 times in all:
+    the profiler on the GPU host now and then returns an empty record or
+    drops events (9 launches recorded over 10 calls, whose results were
+    all right); every call launches the same kernels, so a whole count
+    per call is never retaken, and the last reading stands."""
+    on_card = []
     for _ in range(3):
         on_card = [e.name for e in _card_events(fn, calls)]
-        if on_card:
-            return len(on_card) / calls, sorted(set(on_card))
-    return None, []
+        if on_card and len(on_card) % calls == 0:
+            break
+    if not on_card:
+        return None, []
+    return len(on_card) / calls, sorted(set(on_card))
 
 
 def phase_kernels(bw, flops):
@@ -6511,11 +6565,7 @@ def phase_fed(dev="cuda", n_obs=LARGE_PATH[1], slots=FED_SLOTS, points=FED_POINT
         if client is not None:
             client.close()
             pool.close()
-        for proc in procs:
-            proc.join(timeout=10)
-            if proc.is_alive():
-                proc.kill()
-                proc.join(timeout=10)
+        _join_nodes(procs)
     out["kernel_launches"] = out["mesh"]["kernel_launches"]
     out["gates"] = {**{f"mesh.{k}": v for k, v in mesh_gates.items()},
                     **{f"pool.{k}": v for k, v in pool_gates.items()},
@@ -6523,11 +6573,424 @@ def phase_fed(dev="cuda", n_obs=LARGE_PATH[1], slots=FED_SLOTS, points=FED_POINT
     return all(out["gates"].values()), out
 
 
+SLICE15 = ("ppl", "ppl_zero")
+PPL_RADON = dict(n_counties=16, seed=12)  # config 20's data (= RADON)
+PPL_MESH_SLOTS = 4
+# chains, warmup, draws (config 20: 2 x (300 + 300)); at 2 x (100 + 100)
+# the split R-hat read 1.127 on the card, above the gate's 1.1.
+PPL_NUTS = (2, 150, 150)
+PPL_PT = (100, 100)  # warmup, draws of pt_sample over 4 temperatures (config 20: 150 + 150)
+PPL_PT_TEMPS = 4
+PPL_SVI = dict(num_steps=1000, n_mc=8, learning_rate=2e-2)  # config 20's batch SVI
+PPL_SVI_RMSE = 0.35  # config 20's gate on the global posterior means against NUTS
+PPL_GLOBALS = ("mu_alpha", "beta", "log_sigma", "log_sigma_alpha")
+PPL_STREAM = dict(warm=4, batches=30, batch=8, n_mc=2, learning_rate=5e-2)  # config 20: 60
+PPL_TIMED_EVALS = 20
+# The HalfNormal normalizing constants the ppl model keeps and the
+# hand-written GLM drops: two scales, each 1/2 log(2/pi).
+PPL_GLM_SHIFT = 2 * 0.5 * math.log(2.0 / math.pi)
+PPL_ZERO = dict(n_counties=64, mean_obs=8, seed=21)  # config 21's data
+PPL_ZERO_WIDTH = 8
+PPL_ZERO_STEPS = (3, 12)  # warm-up, timed steps (config 21: 3, 12), plus one instrumented
+PPL_ZERO_BATCH = 16
+
+
+def _ppl_node(data_kw, roots, dev, conn):
+    """One node of the ppl phases: the ppl radon model built from
+    ``data_kw`` on ``dev``, its ``compiled.node_compute()`` served with
+    ``serve_tcp_once`` on one port and, for each store root in
+    ``roots``, a sharded-SVI owner (``make_sharded_update_compute``) on
+    a port of its own.  Answers the driver's commands on ``conn`` with
+    its requests and updates since the last ``reset``."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from pytensor_federated_torch import ppl
+        from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+        from pytensor_federated_torch.optim import ShardStore
+        from pytensor_federated_torch.ppl.svi import make_sharded_update_compute
+        from pytensor_federated_torch.service import serve_tcp_once
+
+        if dev == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ppl node found no GPU")
+        model, args, _ = ppl.make_radon_example(**data_kw, device=dev)
+        compiled = ppl.compile(model, args)
+        lock, counts, ports = threading.Lock(), {"requests": 0, "updates": 0}, []
+
+        def counted(fn, key):
+            def run(*a):
+                with lock:
+                    counts[key] += 1
+                return fn(*a)
+            return run
+
+        servers = [counted(compiled.node_compute(), "requests")]
+        for root in roots:
+            owner = make_sharded_update_compute(compiled, ShardStore(root),
+                                                learning_rate=PPL_STREAM["learning_rate"],
+                                                n_mc=PPL_STREAM["n_mc"])
+            owner.versioned_update = counted(owner.versioned_update, "updates")
+            servers.append(owner)
+        for compute in servers:
+            bound = threading.Event()
+
+            def on_ready(port, bound=bound):
+                ports.append(port)
+                bound.set()
+
+            threading.Thread(target=serve_tcp_once, args=(compute,), daemon=True,
+                             kwargs={"port": 0, "concurrent": True, "ready_callback": on_ready}
+                             ).start()
+            if not bound.wait(60):
+                raise RuntimeError("ppl node did not bind a port")
+        conn.send({"ports": ports, "pid": os.getpid(),
+                   "device": torch.cuda.get_device_name() if dev == "cuda" else "cpu"})
+
+        def now():
+            with lock:
+                return {**counts, "launches": linreg_reductions.launches}
+
+        base = now()
+        while True:
+            cmd = conn.recv()
+            cur = now()
+            if cmd == "reset":
+                base = cur
+            conn.send({k: cur[k] - base[k] for k in cur})
+            if cmd == "stop":
+                return
+    except Exception:
+        conn.send({"error": traceback.format_exc()})
+
+
+def _start_ppl_nodes(n, data_kw, roots, card):
+    ctx = _node_context()
+    procs, conns = [], []
+    for _ in range(n):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_ppl_node, args=(data_kw, roots, card.type, child), daemon=True)
+        proc.start()
+        procs.append(proc)
+        conns.append(parent)
+    return procs, conns
+
+
+def _join_nodes(procs):
+    for proc in procs:
+        proc.join(timeout=10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+
+
+def _rmse(a, b):
+    return math.sqrt(sum((a[k] - b[k]) ** 2 for k in PPL_GLOBALS) / len(PPL_GLOBALS))
+
+
+def _ppl_values(card, model, args, compiled, points):
+    """The ppl radon model on the card against itself in float64 on the
+    CPU and against the hand-written ``HierarchicalRadonGLM``, and the
+    mesh lane against the dense program."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch import fed, ppl
+
+    c64 = ppl.compile(model, tuple(a.detach().cpu().double() for a in args))
+    f64_ok, f64 = _against_f64(compiled, c64, points)
+    glm = pft.HierarchicalRadonGLM(pft.generate_radon_data(**PPL_RADON, device=card)[0])
+    mesh = pft.make_mesh({"shards": PPL_MESH_SLOTS}, devices=[card] * PPL_MESH_SLOTS)
+    meshed = ppl.compile(model, args, placement=fed.MeshPlacement(mesh))
+    glm_rows, mesh_rows, glm_ok, mesh_ok = [], [], True, True
+    for name, p in points.items():
+        v, g = compiled.logp_and_grad(p)
+        vg, gg = glm.logp_and_grad(p)
+        rel = abs(float(v) - (float(vg) + PPL_GLM_SHIFT)) / abs(float(v))
+        worst = _err_over_tol(g, gg, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX)
+        glm_ok &= rel <= MODEL_VALUE_RTOL and worst <= 1.0
+        glm_rows.append({"point": name, "value_rel_err_shifted": rel, "grad_err_over_tol": worst})
+        ok, row = _against_no_mesh(meshed.logp_and_grad(p), (v, g))
+        mesh_ok &= ok
+        mesh_rows.append({"point": name, **row})
+    p0 = points["origin"]
+    ms = {"dense": _ms_per_eval(lambda: compiled.logp_and_grad(p0), card, PPL_TIMED_EVALS),
+          "mesh": _ms_per_eval(lambda: meshed.logp_and_grad(p0), card, PPL_TIMED_EVALS),
+          "hand_written_glm": _ms_per_eval(lambda: glm.logp_and_grad(p0), card, PPL_TIMED_EVALS)}
+    gates = {"values_against_f64": f64_ok, "glm_shifted_values_equal_grads": glm_ok,
+             "mesh_equals_dense": mesh_ok}
+    return gates, {"against_f64": f64, "against_hand_written_glm": glm_rows,
+                   "glm_shift": PPL_GLM_SHIFT, "mesh": {"slots": PPL_MESH_SLOTS, "points": mesh_rows},
+                   "ms_per_logp_and_grad": ms, "timed_evals": PPL_TIMED_EVALS}
+
+
+def _ppl_pool(model, args, compiled, point, client):
+    """One pool window and one reduced window against the dense program."""
+    from pytensor_federated_torch import fed, ppl
+    from pytensor_federated_torch.telemetry import flightrec, spans
+
+    want = compiled.logp_and_grad(point)
+    prev = spans.set_enabled(True), flightrec.set_enabled(True)
+    rows, kinds = {}, {}
+    try:
+        for name, placement in (("window", fed.PoolPlacement(client, window=8)),
+                                ("reduced", fed.PoolPlacement(client, window=8, reduce=True))):
+            flightrec.clear()
+            t0 = time.perf_counter()
+            got = ppl.compile(model, args, placement=placement).logp_and_grad(point)
+            ok, rows[name] = _against_no_mesh(got, want)
+            rows[name]["ok"], rows[name]["wall_s"] = ok, time.perf_counter() - t0
+            kinds[name] = sorted({e["kind"] for e in flightrec.events()
+                                  if e["kind"].startswith("fed.")})
+    finally:
+        spans.set_enabled(prev[0])
+        flightrec.set_enabled(prev[1])
+    gates = {"window_equals_dense": rows["window"]["ok"],
+             "reduced_equals_dense": rows["reduced"]["ok"],
+             "reduced_lowered_to_one_reduced_window": kinds["reduced"] == ["fed.reduce_window"]}
+    return gates, {**rows, "flight_kinds": kinds}
+
+
+def _ppl_stream(model, args, pool, card, stream=PPL_STREAM):
+    """Config 20's streaming SVI through a GatewayThread over the pool."""
+    import numpy as np
+
+    from pytensor_federated_torch import fed, ppl
+    from pytensor_federated_torch.gateway import GatewayThread, TenantFairness
+    from pytensor_federated_torch.service import TcpArraysClient
+
+    gw = GatewayThread(pool, fairness=TenantFairness(), frame_items=16)
+    gw.start()
+    cli = TcpArraysClient("127.0.0.1", gw.port, tenant="svi")
+    try:
+        pc = ppl.compile(model, args, placement=fed.PoolPlacement(cli, window=8, tag="svi"))
+        svi = ppl.StreamingSVI(pc, generator=3, n_mc=stream["n_mc"],
+                               learning_rate=stream["learning_rate"], deadline_s=None)
+        rng = np.random.default_rng(20)
+        n = pc.n_shards
+
+        def batch():
+            return rng.choice(n, size=stream["batch"], replace=False)
+
+        walls = []
+        for _ in range(stream["warm"]):
+            t0 = time.perf_counter()
+            svi.step(batch())
+            walls.append(time.perf_counter() - t0)
+        svi.deadline_s = max(1.0, 6.0 * statistics.median(walls))
+        base_offered, base_accepted = svi.offered, svi.accepted
+        t0 = time.perf_counter()
+        for _ in range(stream["batches"]):
+            svi.step(batch())
+        wall = time.perf_counter() - t0
+    finally:
+        cli.close()
+        gw.stop()
+    offered, accepted = svi.offered - base_offered, svi.accepted - base_accepted
+    goodput = accepted / offered
+    third = max(1, len(svi.elbo_trace) // 3)
+    first, last = (float(np.mean(svi.elbo_trace[:third])), float(np.mean(svi.elbo_trace[-third:])))
+    gates = {"goodput_at_least_0.9": goodput >= 0.9, "opt_steps_equal_accepted":
+             svi.opt_steps == svi.accepted, "elbo_last_third_above_first": last > first}
+    return gates, {**stream, "tenant": "svi", "frame_items": 16, "warm_step_s": walls,
+                   "deadline_s": svi.deadline_s, "offered": offered, "accepted": accepted,
+                   "goodput": goodput, "skipped": dict(svi.skipped), "opt_steps": svi.opt_steps,
+                   "wall_s": wall, "steps_per_s": accepted / wall,
+                   "elbo_first_third": first, "elbo_last_third": last}
+
+
+def phase_ppl(dev="cuda", nuts=PPL_NUTS, pt=PPL_PT, svi=PPL_SVI, stream=PPL_STREAM):
+    """Slice 15, the ppl front end: bench_suite config 20 on the card —
+    one effectful radon model in every mode."""
+    from pytensor_federated_torch import ppl
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.routing import NodePool, PooledArraysClient
+    from pytensor_federated_torch.samplers import pt_sample
+
+    card = torch.device("cuda", 0) if torch.device(dev).type == "cuda" else torch.device("cpu")
+    launches0 = linreg_reductions.launches
+    out = {"phase": "ppl", "config": "bench_suite.py:3153-3443 (config 20)",
+           "data": {**PPL_RADON, "mean_obs": 24}}
+    procs, conns = _start_ppl_nodes(2, {**PPL_RADON}, [], card)
+    pool = client = None
+    gates = {}
+    try:
+        t0 = time.perf_counter()
+        model, args, true = ppl.make_radon_example(**PPL_RADON, device=card)
+        compiled = ppl.compile(model, args)
+        points = _three_points(compiled.init_params())
+        g, out["values"] = _ppl_values(card, model, args, compiled, points)
+        gates.update({f"values.{k}": v for k, v in g.items()})
+        out["values"]["wall_s"] = time.perf_counter() - t0
+
+        graph = card.type == "cuda"
+        res, run = _model_nuts(compiled, card, seed=11, nuts=nuts, cuda_graph=graph)
+        run["cuda_graph"] = graph
+        nuts_means = {k: float(res.samples[k].mean()) for k in PPL_GLOBALS}
+        run["beta_median"], run["beta_true"] = float(res.samples["beta"].median()), true["beta"]
+        run["means"] = nuts_means
+        out["nuts"] = run
+        gates["nuts.finite"] = run["finite"]
+        gates["nuts.divergence_share_below_0.1"] = run["divergence_share"] < 0.1
+        gates["nuts.beta_within_0.3"] = abs(run["beta_median"] - true["beta"]) < 0.3
+        gates["nuts.split_rhat_below_1.1"] = run["max_split_rhat"] < 1.1
+
+        _sync(card)
+        t0 = time.perf_counter()
+        pt_res = pt_sample(compiled.logp, compiled.init_params(),
+                           generator=torch.Generator(device=card).manual_seed(1),
+                           num_warmup=pt[0], num_samples=pt[1], num_temps=PPL_PT_TEMPS,
+                           cuda_graph=graph)
+        _sync(card)
+        pt_means = {k: float(pt_res.samples[k].mean()) for k in PPL_GLOBALS}
+        out["tempering"] = {"warmup": pt[0], "draws": pt[1], "temps": PPL_PT_TEMPS,
+                            "cuda_graph": graph, "wall_s": time.perf_counter() - t0,
+                            "means": pt_means, "rmse_vs_nuts": _rmse(pt_means, nuts_means)}
+
+        _sync(card)
+        t0 = time.perf_counter()
+        svi_res, _ = ppl.svi_fit(compiled, generator=torch.Generator(device=card).manual_seed(2),
+                                 **svi)
+        _sync(card)
+        svi_wall = time.perf_counter() - t0
+        svi_means = {k: float(svi_res.mean[k]) for k in PPL_GLOBALS}
+        elbo = svi_res.elbo_trace
+        out["svi"] = {**svi, "wall_s": svi_wall, "nuts_wall_s": run["wall_s"],
+                      "speedup_vs_nuts": run["wall_s"] / svi_wall, "means": svi_means,
+                      "rmse_vs_nuts": _rmse(svi_means, nuts_means),
+                      "elbo_first": float(elbo[0]), "elbo_last": float(elbo[-1])}
+        gates["svi.elbo_improves"] = float(elbo[-1]) > float(elbo[0])
+        gates["svi.rmse_vs_nuts_within_0.35"] = out["svi"]["rmse_vs_nuts"] <= PPL_SVI_RMSE
+
+        nodes = _fed_ask(conns, None, timeout=300.0)
+        out["nodes"] = [n["device"] for n in nodes]
+        pool = NodePool([("127.0.0.1", n["ports"][0]) for n in nodes], transport="tcp")
+        client = PooledArraysClient(pool)
+        _fed_ask(conns, "reset")
+        g, out["pool"] = _ppl_pool(model, args, compiled, points["normal"], client)
+        gates.update({f"pool.{k}": v for k, v in g.items()})
+        pool.start()
+        g, out["stream"] = _ppl_stream(model, args, pool, card, stream)
+        gates.update({f"stream.{k}": v for k, v in g.items()})
+        out["node_counts"] = _fed_ask(conns, "stop")
+    finally:
+        if client is not None:
+            client.close()
+        if pool is not None:
+            pool.close()
+        _join_nodes(procs)
+    out["kernel_launches"] = linreg_reductions.launches - launches0
+    out["gates"] = gates
+    return all(gates.values()), out
+
+
+def _ppl_zero_measure(svi, schedule, steps=PPL_ZERO_STEPS):
+    """Config 21's measure: warm-up steps, then the driver-side reply
+    bytes of ONE instrumented step (the npwire decode_copy counter counts
+    only with telemetry on), then the accepted steps/s of timed steps."""
+    from pytensor_federated_torch.service.npwire import WIRE_BYTES_COPIED
+    from pytensor_federated_torch.telemetry import spans
+
+    decode = WIRE_BYTES_COPIED.labels(lane="npwire", stage="decode_copy")
+    it = iter(schedule)
+    outcomes = [svi.step(next(it)) for _ in range(steps[0])]
+    was = spans.set_enabled(True)
+    try:
+        b0 = decode.value
+        outcomes.append(svi.step(next(it)))
+        nbytes = decode.value - b0
+    finally:
+        spans.set_enabled(was)
+    t0 = time.perf_counter()
+    outcomes += [svi.step(next(it)) for _ in range(steps[1])]
+    wall = time.perf_counter() - t0
+    return {"accepted_all": outcomes.count("accepted") == len(outcomes),
+            "steps_per_s": steps[1] / wall, "reply_bytes_per_step": nbytes}
+
+
+def phase_ppl_zero(dev="cuda", width=PPL_ZERO_WIDTH, data_kw=PPL_ZERO, steps=PPL_ZERO_STEPS):
+    """Slice 15, sharded SVI: bench_suite config 21 at width 8 on the
+    card — the driver-centric streaming control against ZeRO-sharded
+    streaming SVI over the same eight node processes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pytensor_federated_torch import fed, ppl
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.optim import ShardedOptimizer
+    from pytensor_federated_torch.routing import PooledArraysClient
+    from pytensor_federated_torch.service import TcpArraysClient
+
+    card = torch.device("cuda", 0) if torch.device(dev).type == "cuda" else torch.device("cpu")
+    launches0 = linreg_reductions.launches
+    root = tempfile.mkdtemp(prefix="ppl-zero-")
+    procs, conns = _start_ppl_nodes(width, dict(data_kw), [root], card)
+    out = {"phase": "ppl_zero", "config": "bench_suite.py:3445-3700 (config 21), width 8",
+           "data": dict(data_kw), "width": width}
+    clients, opt = [], None
+    try:
+        model, args, _ = ppl.make_radon_example(**data_kw, device=card)
+        plain = ppl.compile(model, args)
+        dim = sum(t.numel() for t in plain.init_params().values())
+        total = 2 * dim
+        rng = np.random.default_rng(16)
+        schedule = [rng.choice(data_kw["n_counties"], size=PPL_ZERO_BATCH, replace=False)
+                    .astype(np.int32) for _ in range(sum(steps) + 1)]
+        t0 = time.perf_counter()
+        nodes = _fed_ask(conns, None, timeout=300.0)
+        out["spawn_s"] = time.perf_counter() - t0
+        out["nodes"] = [n["device"] for n in nodes]
+        _fed_ask(conns, "reset")
+        kw = dict(n_mc=PPL_STREAM["n_mc"], learning_rate=PPL_STREAM["learning_rate"])
+
+        control_client = PooledArraysClient([("127.0.0.1", n["ports"][0]) for n in nodes],
+                                            transport="tcp")
+        clients.append(control_client)
+        control = ppl.StreamingSVI(ppl.compile(model, args, placement=fed.PoolPlacement(
+            control_client, window=8, tag="svi")), generator=5, **kw)
+        out["control"] = _ppl_zero_measure(control, schedule, steps)
+        out["control"].update(opt_steps=control.opt_steps, accepted=control.accepted,
+                              resident_elems=4 * total)
+
+        clients += [TcpArraysClient("127.0.0.1", n["ports"][1]) for n in nodes]
+        opt = ShardedOptimizer(total, clients=clients[1:])
+        sharded = ppl.StreamingSVI(plain, generator=5, sharded=opt, **kw)
+        out["sharded"] = _ppl_zero_measure(sharded, schedule, steps)
+        ceil_shard = -(-total // width)
+        out["sharded"].update(shard_opt_steps=sharded.shard_opt_steps,
+                              shard_accepted=sharded.shard_accepted,
+                              max_reply_elems=opt.max_reply_elems, ceil_shard=ceil_shard,
+                              resident_elems=total + opt.max_reply_elems,
+                              driver_optimizer=sharded._opt is not None)
+        out["model_flat_elems"] = total
+        out["node_counts"] = _fed_ask(conns, "stop")
+        reduction = out["control"]["reply_bytes_per_step"] / max(
+            1, out["sharded"]["reply_bytes_per_step"])
+        out["reply_bytes_reduction"] = reduction
+        out["gates"] = {
+            "control.accepted_all": out["control"]["accepted_all"],
+            "control.opt_steps_equal_accepted": control.opt_steps == control.accepted,
+            "sharded.accepted_all": out["sharded"]["accepted_all"],
+            "sharded.shard_opt_steps_equal_accepted":
+                sharded.shard_opt_steps == sharded.shard_accepted,
+            "sharded.max_reply_elems_within_ceil_total_over_width":
+                opt.max_reply_elems <= ceil_shard,
+            "reply_bytes_4x_below_control": reduction >= 4.0,
+        }
+    finally:
+        for c in clients:
+            c.close()
+        if opt is not None and opt._executor is not None:
+            opt._executor.shutdown()
+        _join_nodes(procs)
+        shutil.rmtree(root, ignore_errors=True)
+    out["kernel_launches"] = linreg_reductions.launches - launches0
+    return all(out["gates"].values()), out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
                                            "slice7", "slice8", "slice9", "slice10", "slice11",
-                                           "slice12", "slice13", "slice14"],
+                                           "slice12", "slice13", "slice14", "slice15"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
@@ -6540,7 +7003,8 @@ def main() -> int:
                              "optim and mesh only; slice12: device, build, nuts_large, "
                              "multichain and seq only; slice13: device, build, nuts_large, "
                              "zero, parallel_axes, multihost and elastic only; slice14: "
-                             "device, build and fed only")
+                             "device, build and fed only; slice15: device, build, ppl and "
+                             "ppl_zero only")
     parser.add_argument("--multichain-seeds", default=",".join(map(str, MULTICHAIN_SEEDS)),
                         type=lambda v: tuple(int(x) for x in v.split(",")),
                         help="comma-separated seeds of the multichain phase's NUTS runs, "
@@ -6621,6 +7085,8 @@ def main() -> int:
         ("multihost", phase_multihost),
         ("elastic", phase_elastic),
         ("fed", phase_fed),
+        ("ppl", phase_ppl),
+        ("ppl_zero", phase_ppl_zero),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -6649,6 +7115,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in ("nuts_large",) + SLICE13]
     elif args.only == "slice14":
         phases = [ph for ph in phases if ph[0] in SLICE14]
+    elif args.only == "slice15":
+        phases = [ph for ph in phases if ph[0] in SLICE15]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -6684,6 +7152,7 @@ def main() -> int:
     emit({"phase": "leftovers", "ok": clean, "subreaper": subreaper, **left})
     all_ok &= clean
     emit({"timing": {"phases": timing, "total_s": time.perf_counter() - t_script}})
+    _stop_helpers()
     if args.only:
         if not all_ok:
             print("chip_smoke: a phase failed: " + json.dumps(
@@ -6714,10 +7183,12 @@ def main() -> int:
         # of its work and by rank 1 through its timed evaluations, its
         # work loop until the SIGKILL not read; in the elastic phase over
         # its three runs; in the fed phase over the mesh lane's gate and
-        # timed evaluations, FederatedLogpGrad's and FederatedLogp's).
+        # timed evaluations, FederatedLogpGrad's and FederatedLogp's; the
+        # ppl and ppl_zero phases count theirs, 0: the kernel is not on
+        # the ppl model's path).
         "launches": sum(lines[p].get("kernel_launches", 0)
                         for p in ("nuts", "nuts_large", "pool", "gateway", "optim", "multichain")
-                        + SLICE10 + SLICE13 + SLICE14)
+                        + SLICE10 + SLICE13 + SLICE14 + SLICE15)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

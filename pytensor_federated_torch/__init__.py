@@ -29,7 +29,7 @@ package imports neither JAX nor the JAX package, and it imports
 ``grpc`` only at the first gRPC call.
 """
 
-from . import diagnostics, fed, flopcount, precision, samplers
+from . import diagnostics, fed, flopcount, ppl, precision, samplers
 from .checkpoint import load_pytree, sample_checkpointed, save_pytree
 from .convert import params_from_jax, sharded_data_from_jax
 from .diagnostics import instrument_logp, profile_trace
@@ -87,6 +87,7 @@ from .parallel import (
 from .precision import pdot, split_dot, wrap_policy
 from .signatures import ArraysSpec, ComputeFn, LogpFn, LogpGradFn, ShapeDtypeStruct, spec_of
 from .utils import LOG_2PI, resolve_device
+from .version import __version__
 from .wrappers import logp_grad_from_logp, wrap_logp_fn, wrap_logp_grad_fn
 
 __all__ = [
@@ -149,6 +150,7 @@ __all__ = [
     "parallel_host_call",
     "params_from_jax",
     "pdot",
+    "ppl",
     "precision",
     "profile_trace",
     "resolve_device",
@@ -163,4 +165,5 @@ __all__ = [
     "wrap_logp_fn",
     "wrap_logp_grad_fn",
     "wrap_policy",
+    "__version__",
 ]

@@ -70,7 +70,14 @@ from .primitives import (
     fed_sum_p,
 )
 
-__all__ = ["FederatedLogpGrad", "canonical_round", "program"]
+__all__ = ["ConcretizationError", "FederatedLogpGrad", "canonical_round", "program"]
+
+
+class ConcretizationError(TypeError):
+    """A program-derived value was converted to a Python value while the
+    program recorded its graph (JAX's ``ConcretizationTypeError``).
+    Code that can do without the concrete value catches this one
+    exception, nothing broader."""
 
 
 def canonical_round(
@@ -205,7 +212,7 @@ class _Recorder(TorchFunctionMode):
         if not used:
             return func(*args, **kwargs)
         if getattr(func, "__name__", None) in _CONCRETIZING:
-            raise TypeError(
+            raise ConcretizationError(
                 f"{func.__name__} of a value derived from a fed program's "
                 "inputs: the program's graph cannot depend on its values"
             )

@@ -1270,3 +1270,63 @@ def test_graph_launch_gate_counts_the_graphs_own_kernel_nodes():
     right = chip_smoke._graph_check(replay, twice, points, expected=2, timed=0)
     assert wrong["kernel_launches_per_replay"] == 2 and not wrong["launch_ok"]
     assert right["launch_ok"] and right["replay_bits_equal_eager"]
+
+
+def _radon_ppl_pair(dev, counties=16):
+    """The ``ppl`` radon model (config 20's data) compiled on ``dev`` and
+    in float64 on the CPU, and three seeded points."""
+    from pytensor_federated_torch import ppl
+
+    model, args, _ = ppl.make_radon_example(counties, seed=12, device=dev)
+    args64 = tuple(a.cpu().double() for a in args)
+    c64 = ppl.compile(model, args64)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    c = ppl.compile(model, args)
+    points = [{k: 0.3 * torch.randn(t.shape, generator=gen, device=dev)
+               for k, t in c.init_params().items()} for _ in range(3)]
+    return model, args, c64, points
+
+
+def _against_ppl_f64(compiled, c64, p):
+    v, g = compiled.logp_and_grad(p)
+    v64, g64 = c64.logp_and_grad({k: t.cpu().double() for k, t in p.items()})
+    assert abs(float(v) - float(v64)) <= 1e-5 * abs(float(v64))
+    for k in g64:
+        err = (g[k].cpu().double() - g64[k]).abs()
+        assert bool((err <= 1e-4 * g64[k].abs() + 1e-5 * g64[k].abs().max()).all()), k
+
+
+@pytest.mark.gpu
+def test_ppl_compile_on_the_card_matches_float64_on_the_cpu():
+    """``ppl.compile`` of the radon model on the card, dense and over a
+    4-slot mesh of the card, against the same model compiled in float64
+    on the CPU (value rtol 1e-5, gradient within 1e-4 |g| + 1e-5 max|g|)
+    at three seeded points; the compiled model lives on the card."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch import fed, ppl
+
+    dev = _cuda()
+    model, args, c64, points = _radon_ppl_pair(dev)
+    dense = ppl.compile(model, args)
+    mesh = pft.make_mesh({"shards": 4}, devices=[torch.device("cuda", 0)] * 4)
+    meshed = ppl.compile(model, args, placement=fed.MeshPlacement(mesh))
+    assert dense.device.type == "cuda" and dense.sample_prior(
+        torch.Generator(device=dev).manual_seed(0))["beta"].is_cuda
+    for p in points:
+        _against_ppl_f64(dense, c64, p)
+        _against_ppl_f64(meshed, c64, p)
+
+
+@pytest.mark.gpu
+def test_ppl_vmapped_logp_on_the_card_equals_the_per_point_calls():
+    """``torch.func.vmap(compiled.logp)`` on the card (a sampler's chain
+    batch) equals the per-point calls (rtol 1e-6)."""
+    from pytensor_federated_torch import ppl
+
+    dev = _cuda()
+    model, args, _c64, points = _radon_ppl_pair(dev)
+    c = ppl.compile(model, args)
+    stacked = {k: torch.stack([p[k] for p in points]) for k in points[0]}
+    batched = torch.func.vmap(c.logp)(stacked)
+    single = torch.stack([c.logp(p) for p in points])
+    np.testing.assert_allclose(batched.cpu().numpy(), single.cpu().numpy(), rtol=1e-6)

@@ -23,6 +23,7 @@ SUBPACKAGES = (
     "flopcount", "_assoc_scan", "gateway", "ppl", "checkpoint", "demos", "demos.demo_node",
     "demos.demo_model", "optim", "diagnostics", "fed", "fed.primitives", "fed.placements",
     "fed.lowering", "fed.batching", "bridge", "bridge.grouping", "parallel.federated",
+    "ppl.distributions", "ppl.handlers", "ppl.radon", "ppl.compiler", "ppl.svi", "version",
 )
 
 
@@ -63,6 +64,26 @@ def test_each_subpackage_alone_loads_no_jax_or_grpc(name):
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_ppl_alone_with_every_name_loads_no_jax_or_grpc():
+    """``pytensor_federated_torch.ppl``, imported first and alone in a
+    fresh interpreter, resolves every name of its ``__all__`` (the JAX
+    package's ``ppl.__all__``) and pulls in neither JAX, nor the JAX
+    package, nor gRPC."""
+    code = (
+        "import sys\n"
+        "import pytensor_federated_torch.ppl as ppl\n"
+        "missing = [n for n in ppl.__all__ if getattr(ppl, n, None) is None]\n"
+        f"print('BAD', missing, sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] []" in out.stdout, out.stdout
+    assert _all_of(ROOT / "pytensor_federated_torch" / "ppl" / "__init__.py") == _all_of(
+        ROOT / "pytensor_federated_tpu" / "ppl" / "__init__.py")
 
 
 #: The host-federation modules of the replica pool, the lanes (gRPC's
@@ -218,14 +239,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: pft.models.SeqShardedAR1(torch.zeros(4).numpy()),
         lambda: pft.fed.FederatedLogpGrad(lambda p, d: d.sum(), torch.zeros(2, 3).numpy()),
         lambda: pft.fed.make_node_compute(lambda p: p.sum()),
+        lambda: pft.ppl.make_radon_example(4),
+        lambda: pft.ppl.seed(lambda: None, rng_key=0),
     ],
     ids=["generate_lgssm_data", "default_lgssm_params", "generate_gp_data", "FederatedLGSSMPanel",
          "peak_flops", "demo_node.make_node_compute", "demo_model.run_local", "make_mesh",
          "make_mesh_shape", "single_device_mesh", "get_load", "healthy_devices",
-         "log_device_load", "SeqShardedAR1", "FederatedLogpGrad", "fed.make_node_compute"],
+         "log_device_load", "SeqShardedAR1", "FederatedLogpGrad", "fed.make_node_compute",
+         "ppl.make_radon_example", "ppl.seed"],
 )
 def test_new_entry_points_default_to_cuda(monkeypatch, call):
-    """The state-space, GP, FLOP, demo, mesh and ``fed`` entry points ask for CUDA
+    """The state-space, GP, FLOP, demo, mesh, ``fed`` and ``ppl`` entry points ask for CUDA
     without ``device=`` (a mesh, without ``devices=``) and raise when
     there is none: no mesh is built on the CPU by default."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -234,11 +258,9 @@ def test_new_entry_points_default_to_cuda(monkeypatch, call):
 
 
 #: JAX top-level names whose modules the port does not have yet, each
-#: with the ROADMAP Queue 1 item that ports it.
-UNPORTED_TOP_LEVEL = {
-    "__version__": "item 6 (version.py)",
-    "ppl": "item 5 (ppl/: only ppl/elbo.py is ported)",
-}
+#: with the ROADMAP Queue 1 item that ports it: none, since ``ppl/`` and
+#: ``version.py`` landed.
+UNPORTED_TOP_LEVEL: dict = {}
 #: Top-level names of the port that the JAX package's __init__ does not
 #: export (it exports them from its subpackages).
 PORT_ONLY_TOP_LEVEL = {
@@ -312,6 +334,7 @@ PORT_ONLY = {
         "welford_update", "welford_variance",
     },
     "fed": set(),
+    "ppl": set(),
 }
 
 
