@@ -21,6 +21,7 @@
                                            # parallel_axes, multihost, elastic
     python3 chip_smoke.py --only slice14   # device, build, fed
     python3 chip_smoke.py --only slice15   # device, build, ppl, ppl_zero
+    python3 chip_smoke.py --only slice16   # device, build, linalg
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -86,8 +87,9 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    and node from the spans the nodes ship back (spans on for that short
    run only); and runs NUTS over the wire at 8 x 64, 1 chain x 150
    warmup + 150 draws, whose means must also lie within 4 combined MCSEs
-   of the nuts phase's.  Each node reports its GPU and as many kernel
-   launches as requests.
+   of the nuts phase's; its requests and replies are recorded for the
+   pool phase.  Each node reports its GPU and as many kernel launches as
+   requests.
 8. ``pool`` — the replica pool and the colocated lanes.  Eight node
    processes (forked from the fork server), two replicas per group of
    shards {2g, 2g+1}:
@@ -96,11 +98,15 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    node serves ``device_compute_fn(..., batched=True)`` over the kernel
    and runs the HTTP exporter.  The driver (on the CPU) holds one
    ``NodePool`` per group (p2c, a running probe thread) behind a
-   ``PooledArraysClient``, fanned out by ``ParallelLogpGrad``.  Gates:
-   the federated phase's values at 8 x 131,072 and its NUTS draws (its
-   sha256), bit for bit, while group 0's shm replica is SIGKILLed a
-   third of the way into the run and restarted on its ports; exactly one
-   reply per request; that replica's breaker open, then closed; every
+   ``PooledArraysClient``, fanned out by ``ParallelLogpGrad``.  The NUTS
+   run is the federated phase's: its first 75% of evaluations (the
+   warmup and the first draws) are answered from the federated phase's
+   record of every group's requests and replies, each request held bit
+   for bit to the recorded one, and the rest go through the pools.  Gates: the federated
+   phase's values at 8 x 131,072 and its NUTS draws (its sha256), bit
+   for bit, while group 0's shm replica is SIGKILLed a third of the way
+   into the pooled evaluations and restarted on its ports; exactly one
+   reply per pooled request; that replica's breaker open, then closed; every
    replica served before the kill; split R-hat < 1.05; windows of W in
    {4, 16, 64} requests through ``evaluate_many`` equal to each request
    alone, bit for bit, with kernel launches equal to the windows each
@@ -435,9 +441,34 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    in the sharded run); no reply above ceil(total / 8) elements; the
    driver-side reply bytes per step at least 4x below the control's.
    Width 64 (64 node processes) does not run on the card.
+37. ``linalg`` — blocked linear algebra, bench_suite config 23
+   (bench_suite.py:4082-4320) at its own sizes: a = m m^T / n + I,
+   n = 512 in 64 x 64 tiles (an 8 x 8 grid), float64, from
+   ``default_rng(23)``.  Eight block-store node processes forked from the
+   fork server, each serving ``make_block_store_compute`` with its tiles
+   on the card over TCP.  Widths 2, 4 and 8 run ``BlockedCholesky`` on the
+   first w nodes (the stores RESET between widths: config 23 starts
+   fresh nodes per width), a warm factorization and 3 timed ones, each
+   a full distribution.  Gates: every factor within 1e-8 of LAPACK;
+   no restore; every lower tile shipped once per factorization and the
+   distribution one lower triangle; the largest step's payload (config
+   23's client-seam ledger) at most (w + 2) panel columns, and each
+   replica's below the lower triangle.  Recorded: wall, GFLOP/s, bytes,
+   and the ratio to ``torch.linalg.cholesky`` of the matrix on the card
+   and on the CPU.  Recovery at width 4: node 1 is SIGKILLed just
+   before its CHOL_PANEL(1) and restarted from the fork server; the
+   factor equals the uninterrupted one bit for bit, only that node
+   re-ships, and only columns >= 1.  Then config 23's GP lane (n = 384,
+   lengthscale 0.5, jitter 1e-4, float64) through ``_posterior_chol``'s
+   blocked route on the card against its dense route (rtol 2e-3, atol
+   1e-4), and ``linalg.matmul`` (512 x 512 @ 512 x 512),
+   ``block_quadratic_form`` and ``triangular_solve`` on a 4-slot mesh of
+   the card in float64 against float64 on the CPU (1e-10 of the largest
+   entry).
 
-Phases 10-19, 27, 29, 31, 35 and 36 launch no kernel of the port: the JAX package computes
-these models outside Pallas, and so does the port.
+Phases 10-19, 27, 29, 31, 35, 36 and 37 launch no kernel of the port:
+the JAX package computes these models outside Pallas, and so does the
+port.
 
 Every phase runs under a deadline of three times its expected seconds
 (at least 60 s; ``PHASE_EXPECTED_S``), printed in its line.  At the
@@ -464,7 +495,8 @@ the nuts_large phase (the mesh phase's reference posterior) and phases
 26-27, with ``--only slice12`` the nuts_large phase (the multichain
 phase's reference posterior) and phases 28-29, with ``--only slice13``
 the nuts_large phase and phases 30-33, with ``--only slice14`` phase 34
-only, with ``--only slice15`` phases 35-36 only;
+only, with ``--only slice15`` phases 35-36 only, with ``--only slice16``
+phase 37 only;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -592,7 +624,9 @@ LV_FIND_MAP_ATOL = 1e-4  # log_theta, card against float64 on the CPU (CPU float
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line; keys starting with ``_`` stay in the process (a
+    phase's record for a later phase)."""
+    print(json.dumps({k: v for k, v in obj.items() if not k.startswith("_")}), flush=True)
 
 
 # Each phase runs under a deadline of DEADLINE_FACTOR times its expected
@@ -607,7 +641,7 @@ PHASE_EXPECTED_S = {
     "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 12, "demos": 40,
     "optim": 15, "mesh": 50, "multichain": 50, "seq": 15,
     "zero": 5, "parallel_axes": 3, "multihost": 12, "elastic": 20, "fed": 20,
-    "ppl": 40, "ppl_zero": 20,
+    "ppl": 40, "ppl_zero": 20, "linalg": 30,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -1449,16 +1483,45 @@ def _fed_ask(conns, cmd, timeout=120.0):
     return replies
 
 
-def _remote_posterior(nodes, n_obs, parallel=True):
+def _request_key(arrays) -> bytes:
+    import numpy as np
+
+    return b"".join(np.ascontiguousarray(np.asarray(a)).tobytes() for a in arrays)
+
+
+class _Recorded:
+    """A client whose every request (its bytes) and reply go, in order,
+    onto ``log``: the federated phase's record of its NUTS run, which the
+    pool phase replays (``POOL_REPLAYED_SHARE``)."""
+
+    def __init__(self, client, log):
+        self.client, self.log = client, log
+
+    def evaluate(self, *arrays):
+        import numpy as np
+
+        out = self.client.evaluate(*arrays)
+        self.log.append((_request_key(arrays), [np.array(o, copy=True) for o in out]))
+        return out
+
+    def close(self):
+        self.client.close()
+
+
+def _remote_posterior(nodes, n_obs, parallel=True, tape=None):
     """The driver: one TCP client per node, adapted to ``(logp, grads)``,
     fanned out by ``ParallelLogpGrad``; logp = prior + the nodes' sum.
     It runs on the CPU and holds the 11 parameters only.  With
     ``parallel=False`` each node is a ``blackbox_logp_grad`` op called in
     turn (the JAX remote demo's ``--sequential``), which shows what a
-    node's request costs while the other nodes are idle."""
+    node's request costs while the other nodes are idle.  With ``tape`` (a
+    list of one list per node) each node's requests and replies are
+    recorded there."""
     from pytensor_federated_torch.service import TcpArraysClient
 
     clients = [TcpArraysClient("127.0.0.1", n["ports"][n_obs], timeout_s=120.0) for n in nodes]
+    if tape is not None:
+        clients = [_Recorded(c, log) for c, log in zip(clients, tape)]
     posterior, close_fan = _posterior_over(clients, parallel)
 
     def close():
@@ -1599,10 +1662,12 @@ def phase_federated(nuts_line, seed=7):
                 timing[f"8x{n_obs}"][mode] = {"calls": FED_TIMED_CALLS,
                                               "ms_per_eval": statistics.median(times) * 1e3,
                                               "spans": _wire_split(post, truth)}
-                if n_obs == FLAGSHIP[1] and mode == "parallel":
-                    flagship = post
 
         # NUTS over the wire at the flagship size; node counts from zero.
+        # Its requests and replies are recorded for the pool phase.
+        tape = [[] for _ in nodes]
+        flagship, close = _remote_posterior(nodes, FLAGSHIP[1], tape=tape)
+        closers.append(close)
         _fed_ask(conns, "reset")
         grad_evals = 0
 
@@ -1659,6 +1724,7 @@ def phase_federated(nuts_line, seed=7):
                      "divergences": int(res.stats["diverging"].sum()),
                      "max_split_rhat": max_rhat, "recovered": recovered, "finite": finite,
                      "draws_sha256": _draws_sha256(s)},
+            "_nuts_tape": tape,
         }
     finally:
         for close in closers:
@@ -1682,6 +1748,12 @@ def phase_federated(nuts_line, seed=7):
 # federated phase's: the same kernel on the same shards, summed by the
 # driver in the same order, so they must agree bit for bit.
 POOL_GROUPS = 4
+# The pool's NUTS replays this share of the federated run's evaluations
+# (its warmup, ~63% of them, and the first draws) from the federated
+# phase's record of each group's requests and replies, each request held
+# bit for bit to the recorded one; the rest, with the SIGKILL a third of
+# the way into them, go through the pools.
+POOL_REPLAYED_SHARE = 0.75
 POOL_SECOND_LANE = ("ring", "ring", "tcp", "tcp")
 POOL_WINDOWS = (4, 16, 64)  # requests per evaluate_many, one window each
 POOL_WINDOW_REPS = 3
@@ -1881,6 +1953,9 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
     procs, conns, nodes, pools, closers = {}, {}, {}, [], []
     victim = (0, "shm")
     marks = {}  # seconds from the phase's start to the end of each part
+    # Set once the NUTS run's pools stand; `aborted` tells a NUTS run still
+    # waiting for them that they never will.
+    pools_ready, aborted = threading.Event(), []
 
     def mark(name):
         marks[name] = time.perf_counter() - t0
@@ -1899,6 +1974,86 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
         t0 = time.perf_counter()
         for key in lanes:
             start_node(key)
+
+        # The NUTS run starts at once, on a thread of its own: its first
+        # `replay_n` evaluations are answered from the federated run's
+        # record of each group's requests and replies (each request held
+        # bit for bit to the recorded one) and need no node, so they run
+        # while the nodes start; its first pooled request waits until
+        # this thread has built the pools and checked the values.
+        tape = fed_line.get("_nuts_tape") or [[] for _ in range(POOL_GROUPS)]
+        fed_evals = int(fed_line.get("nuts", {}).get("grad_evals") or 5_651)
+        replay_n = min(int(POOL_REPLAYED_SHARE * fed_evals), *(len(t) for t in tape))
+        # SIGKILL group 0's shm replica a third of the way into the pooled
+        # evaluations and restart it on the same ports.
+        kill_at = replay_n + max(1, (fed_evals - replay_n) // 3)
+        replayed, replies, small_clients = [0] * POOL_GROUPS, [0] * POOL_GROUPS, []
+
+        class Replayed:
+            """Group ``g``'s client in the NUTS run: its first ``replay_n``
+            requests answered from the record, then its pooled client,
+            whose replies it counts."""
+
+            def __init__(self, g):
+                self.g = g
+
+            def evaluate(self, *arrays):
+                k = replayed[self.g]
+                if k < replay_n:
+                    key, reply = tape[self.g][k]
+                    if _request_key(arrays) != key:
+                        raise RuntimeError(f"group {self.g}'s request {k} differs from the "
+                                           "federated run's: the trajectories diverged")
+                    replayed[self.g] += 1
+                    return [np.array(r, copy=True) for r in reply]
+                if not pools_ready.wait(300) or aborted:
+                    raise RuntimeError("the pools were not built")
+                out = small_clients[self.g].evaluate(*arrays)
+                replies[self.g] += 1
+                return out
+
+        small_post, close = _posterior_over([Replayed(g) for g in range(POOL_GROUPS)])
+        closers.append(close)
+        init = {k: torch.zeros((8,) if k == "offsets" else (), dtype=torch.float32, device=cpu)
+                for k in ("intercept", "slope", "log_sigma", "offsets")}
+        grad_evals, before_kill, restart, nuts_run, t_pooled = 0, {}, {}, {}, None
+
+        def restart_victim():
+            try:
+                start_node(victim, nodes[victim]["ports"])
+                restart.update(ask([victim], None, timeout=300.0)[victim])
+            except Exception:
+                restart["error"] = traceback.format_exc()
+
+        def counted(p):
+            nonlocal grad_evals, t_pooled
+            grad_evals += 1
+            if grad_evals == replay_n + 1:
+                t_pooled = time.perf_counter()
+            if grad_evals == kill_at:
+                before_kill.update(ask(lanes, "counts"))
+                restart["killed_at_s"] = time.perf_counter() - t0
+                procs[victim].kill()  # SIGKILL: no shutdown, no unlink
+                procs[victim].join(timeout=30)
+                restart["thread"] = threading.Thread(target=restart_victim, daemon=True)
+                restart["thread"].start()
+            return small_post(p)
+
+        def run_nuts():
+            try:
+                gen = torch.Generator(device=cpu).manual_seed(seed)
+                t_nuts = time.perf_counter()
+                nuts_run["res"] = pft.samplers.sample(
+                    counted, init, generator=gen, num_warmup=nuts[1], num_samples=nuts[2],
+                    num_chains=nuts[0])
+                nuts_run["end"] = time.perf_counter()
+                nuts_run["wall"] = nuts_run["end"] - t_nuts
+            except Exception:
+                nuts_run["error"] = traceback.format_exc()
+
+        nuts_thread = threading.Thread(target=run_nuts, name="pool-nuts", daemon=True)
+        nuts_thread.start()
+
         nodes.update(ask(lanes, None, timeout=300.0))
         spawn_s = time.perf_counter() - t0
         mark("spawn")
@@ -1921,26 +2076,11 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
             return out
 
         small_pools, large_pools = make_pools(small), make_pools(large)
-        replies = [0] * POOL_GROUPS
-
-        class Counted:
-            """A group's pooled client, counting the replies it returns."""
-
-            def __init__(self, g, client):
-                self.g, self.client = g, client
-
-            def evaluate(self, *arrays):
-                out = self.client.evaluate(*arrays)
-                replies[self.g] += 1
-                return out
-
-        small_clients = [Counted(g, PooledArraysClient(p)) for g, p in enumerate(small_pools)]
+        small_clients[:] = [PooledArraysClient(p) for p in small_pools]
         large_clients = [PooledArraysClient(p) for p in large_pools]
 
         # Values at 8 x 131,072: the federated phase's points, bit for bit.
         fed_points = {v["point"]: v for v in fed_line.get("values", {}).get("points", [])}
-        init = {k: torch.zeros((8,) if k == "offsets" else (), dtype=torch.float32, device=cpu)
-                for k in ("intercept", "slope", "log_sigma", "offsets")}
         flat0, unravel = ravel(init)
         _, true_offsets = pft.generate_node_data(8, n_obs=8, seed=123, device="cpu")
         truth = {"intercept": torch.tensor(TRUE["intercept"]), "slope": torch.tensor(TRUE["slope"]),
@@ -1959,10 +2099,6 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
         values_ok = len(values) == 3 and all(v["bit_equal"] for v in values)
 
         mark("values")
-        # NUTS through the pools; SIGKILL group 0's shm replica a third of
-        # the way in and restart it on the same ports.
-        small_post, close = _posterior_over(small_clients)
-        closers.append(close)
         victim_replica = small_pools[0].replica_at("127.0.0.1", nodes[victim]["ports"][small])
         breaker_log = []
         notify = victim_replica.breaker._on_transition
@@ -1972,35 +2108,14 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
             notify(old, new)
 
         victim_replica.breaker._on_transition = on_transition
-        kill_at = max(1, int(fed_line.get("nuts", {}).get("grad_evals") or 5_651) // 3)
         ask(lanes, "reset")
-        replies[:] = [0] * POOL_GROUPS
-        grad_evals, before_kill, restart = 0, {}, {}
-
-        def restart_victim():
-            try:
-                start_node(victim, nodes[victim]["ports"])
-                restart.update(ask([victim], None, timeout=300.0)[victim])
-            except Exception:
-                restart["error"] = traceback.format_exc()
-
-        def counted(p):
-            nonlocal grad_evals
-            grad_evals += 1
-            if grad_evals == kill_at:
-                before_kill.update(ask(lanes, "counts"))
-                restart["killed_at_s"] = time.perf_counter() - t0
-                procs[victim].kill()  # SIGKILL: no shutdown, no unlink
-                procs[victim].join(timeout=30)
-                restart["thread"] = threading.Thread(target=restart_victim, daemon=True)
-                restart["thread"].start()
-            return small_post(p)
-
-        gen = torch.Generator(device=cpu).manual_seed(seed)
-        t_nuts = time.perf_counter()
-        res = pft.samplers.sample(counted, init, generator=gen, num_warmup=nuts[1],
-                                  num_samples=nuts[2], num_chains=nuts[0])
-        nuts_wall = time.perf_counter() - t_nuts
+        pools_ready.set()
+        nuts_thread.join(timeout=300)
+        if nuts_thread.is_alive() or "error" in nuts_run:
+            raise RuntimeError(f"the NUTS run failed:\n{nuts_run.get('error', 'still running')}")
+        res, nuts_wall = nuts_run["res"], nuts_run["wall"]
+        pooled_wall = nuts_run["end"] - t_pooled
+        pooled = grad_evals - replay_n
         nuts_replies = list(replies)
         thread = restart.pop("thread", None)
         if thread is not None:
@@ -2032,8 +2147,9 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
         # Exactly one reply per request, and each request computed once:
         # at the driver, every group's client returned one reply per
         # evaluation; at the nodes, the group's replicas served as many.
-        one_reply = (all(r == grad_evals for r in nuts_replies) and grad_evals > 0
-                     and node_requests == POOL_GROUPS * grad_evals)
+        one_reply = (all(r == pooled for r in nuts_replies) and pooled > 0
+                     and node_requests == POOL_GROUPS * pooled
+                     and replayed == [replay_n] * POOL_GROUPS)
         nuts_ok = (
             sha == fed_line.get("nuts", {}).get("draws_sha256") and one_reply and breaker_ok
             and len(before_kill) == len(lanes) and all(v >= 1 for v in served_before_kill.values())
@@ -2091,7 +2207,7 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
                 lane_ms[lane] = _median_ms(lambda: client.evaluate(*probe), POOL_LANE_CALLS)
             finally:
                 client.close()
-        lane_ms["pooled"] = _median_ms(lambda: small_clients[1].client.evaluate(*probe),
+        lane_ms["pooled"] = _median_ms(lambda: small_clients[1].evaluate(*probe),
                                        POOL_LANE_CALLS)
         mark("lanes")
         # MicroBatcher in the driver's process, over the kernel on the card.
@@ -2179,7 +2295,9 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
             "values": {"size": [8, large], "points": values, "bit_equal_to_federated": values_ok},
             "nuts": {"size": [8, small], "chains": nuts[0], "warmup": nuts[1], "draws": nuts[2],
                      "wall_s": nuts_wall, "grad_evals": grad_evals,
-                     "ms_per_grad_eval": nuts_wall * 1e3 / max(grad_evals, 1),
+                     "replayed_evals": replay_n, "replayed_per_group": replayed,
+                     "pooled_evals": pooled, "pooled_wall_s": pooled_wall,
+                     "ms_per_grad_eval": pooled_wall * 1e3 / max(pooled, 1),
                      "federated_ms_per_grad_eval": fed_line.get("nuts", {}).get("ms_per_grad_eval"),
                      "draws_sha256": sha, "draws_equal_federated":
                          sha == fed_line.get("nuts", {}).get("draws_sha256"),
@@ -2216,6 +2334,8 @@ def phase_pool(fed_line, dev="cuda", nuts=FED_NUTS, sizes=FED_SIZES, windows=POO
             "kernel_launches": nuts_launches + window_launches,
         }
     finally:
+        aborted.append(True)
+        pools_ready.set()
         for close in closers:
             close()
         for pool in pools:
@@ -6986,11 +7106,342 @@ def phase_ppl_zero(dev="cuda", width=PPL_ZERO_WIDTH, data_kw=PPL_ZERO, steps=PPL
     return all(out["gates"].values()), out
 
 
+# Slice 16: bench_suite config 23 (bench_suite.py:4082-4320), blocked
+# Cholesky over block-store nodes, at its own sizes.  The one departure:
+# the eight nodes start once and every width runs on the first w of them,
+# their stores RESET between widths (config 23 spawns fresh nodes per
+# width; a store holds tiles by coordinate and never reads the width).
+SLICE16 = ("linalg",)
+LINALG = dict(n=512, block=64, seed=23)  # config 23's matrix: a = m m^T / n + I
+LINALG_WIDTHS = (2, 4, 8)
+LINALG_TIMED = 3  # full factorizations per width after one warm one (config 23: 3)
+LINALG_ATOL = 1e-8  # config 23's gate against LAPACK (bench_suite.py:4246)
+LINALG_RECOVERY = dict(width=4, victim=1, kill_before_call=4)  # its CHOL_PANEL(1)
+LINALG_TIMED_CALLS = 5  # the controls', the GP lane's and the fed ops' medians
+LINALG_GP = dict(n=384, lengthscale=0.5, jitter=1e-4, block=128)  # bench_suite.py:4255-4290
+LINALG_GP_TOL = dict(rtol=2e-3, atol=1e-4)
+LINALG_FED = dict(n=512, n_shards=4, slots=4, block=64)
+LINALG_FED_RTOL = 1e-10  # float64 on the card against float64 on the CPU, of max |ref|
+
+
+def _linalg_node(lay_args, dev, conn):
+    """One block-store node: ``make_block_store_compute`` over
+    ``BlockLayout(*lay_args)`` with its tiles on ``dev``, served with
+    ``serve_tcp_once``; answers the driver's ``stop`` on ``conn``."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from pytensor_federated_torch.linalg import BlockLayout, make_block_store_compute
+        from pytensor_federated_torch.linalg.service import chol_kernel, dot_kernel, trsm_kernel
+        from pytensor_federated_torch.service import serve_tcp_once
+
+        compute = make_block_store_compute(BlockLayout(*lay_args), device=dev)
+        # CUDA, cuBLAS and cuSOLVER start here, on every node at once,
+        # not in the first factorization of each width.
+        warm = torch.eye(2, dtype=torch.float64, device=compute.store.device)
+        dot_kernel(trsm_kernel(warm, chol_kernel(warm)), warm).cpu()
+        bound, ports = threading.Event(), []
+        threading.Thread(target=serve_tcp_once, args=(compute,), daemon=True,
+                         kwargs={"port": 0, "concurrent": True,
+                                 "ready_callback": lambda p: (ports.append(p), bound.set())}
+                         ).start()
+        if not bound.wait(60):
+            raise RuntimeError("linalg node did not bind a port")
+        conn.send({"port": ports[0], "pid": os.getpid(),
+                   "device": torch.cuda.get_device_name() if dev == "cuda" else "cpu",
+                   "store_device": str(compute.store.device)})
+        while conn.recv() != "stop":
+            tiles = list(compute.store.tiles.values())
+            conn.send({"tiles": len(tiles), "tile_devices": sorted({str(t.device) for t in tiles})})
+        conn.send({"stopped": True})
+    except Exception:
+        conn.send({"error": traceback.format_exc()})
+
+
+class _LinalgClient:
+    """A node's TCP client with config 23's ledger: payload array bytes
+    (requests and replies) by (opcode, step), counted at the driver's
+    client seam, as bench_suite's ``CountingClient``.  ``kill_before``
+    SIGKILLs the node process just before that call goes out."""
+
+    def __init__(self, port, proc=None, kill_before=None):
+        from pytensor_federated_torch.service import TcpArraysClient
+
+        self.inner = TcpArraysClient("127.0.0.1", port, timeout_s=120.0)
+        self.by_op, self.calls, self.proc, self.kill_before = {}, 0, proc, kill_before
+
+    def evaluate(self, *arrays):
+        import numpy as np
+
+        from pytensor_federated_torch.linalg.blocks import decode_op_header
+
+        self.calls += 1
+        if self.calls == self.kill_before:
+            self.proc.kill()  # SIGKILL: the store and its tiles are gone
+            self.proc.join(timeout=30)
+        opcode, step, _ = decode_op_header(np.asarray(arrays[0]))
+        out = self.inner.evaluate(*arrays)
+        nbytes = sum(np.asarray(x).nbytes for x in arrays) + sum(np.asarray(x).nbytes for x in out)
+        self.by_op[(opcode, step)] = self.by_op.get((opcode, step), 0) + nbytes
+        return out
+
+    def reset(self):
+        """Drop the node's tiles (not counted) and the ledger."""
+        from pytensor_federated_torch.linalg.blocks import OPCODES, encode_op_header
+
+        self.inner.evaluate(encode_op_header(OPCODES["RESET"]))
+        self.by_op.clear()
+
+    def close(self):
+        self.inner.close()
+
+
+def _linalg_width(lay, a, ref, clients, card, timed):
+    """Config 23's pool lane at one width: a warm factorization, then
+    ``timed`` full ones (distribution included), each against LAPACK;
+    the ledger's bytes per factorization and per step."""
+    import numpy as np
+
+    from pytensor_federated_torch.linalg import BlockedCholesky
+    from pytensor_federated_torch.linalg.blocks import OPCODES
+
+    width = len(clients)
+    for c in clients:
+        c.reset()
+    chol = BlockedCholesky(lay, clients, device=card)
+    factors, walls, shipped_once = [chol.factor(a)], [], []
+    shipped_once.append(sorted(c for _, c in chol.shipped) == sorted(lay.lower_coords()))
+    for c in clients:
+        c.by_op.clear()
+    for _ in range(timed):
+        _sync(card)
+        t0 = time.perf_counter()
+        factors.append(chol.factor(a))
+        _sync(card)
+        walls.append(time.perf_counter() - t0)
+        shipped_once.append(sorted(c for _, c in chol.shipped) == sorted(lay.lower_coords()))
+    errs = [float(np.abs(f.cpu().numpy() - ref).max()) for f in factors]
+    put, g = OPCODES["PUT"], lay.grid_rows
+    step_bytes = [sum(v for c in clients for (op, s), v in c.by_op.items() if op != put and s == k)
+                  // timed for k in range(g)]
+    replica_step_max = max(sum(v for (op, s), v in c.by_op.items() if op != put and s == k) // timed
+                           for c in clients for k in range(g))
+    dist_bytes = sum(v for c in clients for (op, _), v in c.by_op.items() if op == put) // timed
+    best = min(walls)
+    return factors, {
+        "width": width, "walls_s": walls, "wall_s": best,
+        "gflop_per_s": lay.rows ** 3 / 3.0 / best / 1e9,
+        "max_abs_err_vs_lapack": max(errs),
+        "factors_bit_equal": all(bool((f == factors[0]).all()) for f in factors),
+        "restores": chol.restores, "reshipped": len(chol.reshipped),
+        "every_lower_tile_shipped_once": all(shipped_once),
+        "distribution_bytes": dist_bytes, "steady_step_bytes": step_bytes,
+        "steady_step_bytes_max": max(step_bytes), "replica_step_bytes_max": replica_step_max,
+    }
+
+
+def _linalg_gp(card):
+    """Config 23's GP-posterior dispatch lane on the card: the blocked
+    route of ``_posterior_chol`` against the dense one forced by
+    ``_BLOCKED_CHOL_MIN = 10**9``."""
+    import numpy as np
+
+    from pytensor_federated_torch.models import gp as gp_mod
+
+    n = LINALG_GP["n"]
+    xs = np.linspace(0.0, 8.0, n)
+    cov = np.exp(-0.5 * ((xs[:, None] - xs[None, :]) / LINALG_GP["lengthscale"]) ** 2)
+    cov = torch.tensor(cov + LINALG_GP["jitter"] * np.eye(n), dtype=torch.float64, device=card)
+    run = lambda: gp_mod._posterior_chol(cov, LINALG_GP["jitter"], None, block=LINALG_GP["block"])
+    out = {}
+    saved = gp_mod._BLOCKED_CHOL_MIN
+    try:
+        for name, minimum in (("blocked", saved), ("dense", 10**9)):
+            gp_mod._BLOCKED_CHOL_MIN = minimum
+            out[name] = run()
+            out[f"{name}_ms"] = _ms_per_eval(run, card, LINALG_TIMED_CALLS, warm=0)
+    finally:
+        gp_mod._BLOCKED_CHOL_MIN = saved
+    blocked, dense = out.pop("blocked"), out.pop("dense")
+    close = torch.allclose(blocked, dense, **LINALG_GP_TOL)
+    return close and blocked.device == cov.device, {
+        **LINALG_GP, "blocked_min": saved, "tolerance": LINALG_GP_TOL, **out,
+        "max_abs_err": float((blocked - dense).abs().max()), "on_card": blocked.device == cov.device}
+
+
+def _linalg_fed(card, a):
+    """The fed-program ops on a 4-slot mesh of the card, float64,
+    against float64 on the CPU."""
+    import numpy as np
+
+    from pytensor_federated_torch import fed, linalg
+    from pytensor_federated_torch.parallel import make_mesh
+
+    k = LINALG_FED
+    placement = fed.MeshPlacement(make_mesh({"shards": k["slots"]}, devices=[card] * k["slots"]))
+    rng = np.random.default_rng(LINALG["seed"] + 1)
+    b = rng.normal(size=(k["n"], k["n"]))
+    x = rng.normal(size=k["n"])
+    l = np.linalg.cholesky(a)
+    cases = {
+        "matmul": (lambda: linalg.matmul(a, b, n_shards=k["n_shards"], placement=placement,
+                                         device=card), a @ b),
+        "block_quadratic_form": (lambda: linalg.block_quadratic_form(
+            a, x, n_shards=k["n_shards"], placement=placement, device=card), x @ a @ x),
+        "triangular_solve": (lambda: linalg.triangular_solve(
+            l, x, block=k["block"], placement=placement, n_shards=k["n_shards"], device=card),
+            np.linalg.solve(l, x)),
+    }
+    rows, ok = {}, True
+    for name, (fn, ref) in cases.items():
+        got = fn()
+        err = float(np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max())
+        good = got.device.type == card.type and err <= LINALG_FED_RTOL
+        ok &= good
+        rows[name] = {"rel_err": err, "on_card": got.device.type == card.type,
+                      "ms": _ms_per_eval(fn, card, LINALG_TIMED_CALLS, warm=0)}
+    return ok, {**k, "rtol_of_max": LINALG_FED_RTOL, "ops": rows}
+
+
+def phase_linalg(dev="cuda", widths=LINALG_WIDTHS, timed=LINALG_TIMED):
+    """Slice 16, ``linalg``: bench_suite config 23 on the card."""
+    import numpy as np
+
+    from pytensor_federated_torch.linalg import BlockedCholesky, BlockLayout
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+
+    card = torch.device("cuda", 0) if torch.device(dev).type == "cuda" else torch.device("cpu")
+    launches0 = linreg_reductions.launches
+    n, b = LINALG["n"], LINALG["block"]
+    lay = BlockLayout(n, n, b, b)
+    rng = np.random.default_rng(LINALG["seed"])
+    m = rng.normal(size=(n, n))
+    a = m @ m.T / n + np.eye(n)
+    ref = np.linalg.cholesky(a)
+    ctx = _node_context()
+    procs, conns, clients = [], [], []
+
+    def start_node():
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_linalg_node, args=((n, n, b, b), card.type, child), daemon=True)
+        proc.start()
+        procs.append(proc)
+        conns.append(parent)
+        return proc, parent
+
+    out = {"phase": "linalg", "config": "bench_suite.py:4082-4320 (config 23)",
+           "n": n, "block": b, "grid": lay.grid_rows, "seed": LINALG["seed"],
+           "departure": "8 nodes started once; widths on the first w, stores RESET between"}
+    gates, marks = {}, {}
+    out["marks_s"] = marks  # seconds from the phase's start to the end of each part
+    try:
+        t0 = time.perf_counter()
+        for _ in range(max(widths)):
+            start_node()
+        nodes = _fed_ask(conns, None, timeout=300.0)
+        out["spawn_s"] = marks["spawn"] = time.perf_counter() - t0
+        out["nodes"] = [nd["device"] for nd in nodes]
+        gates["nodes_store_on_card"] = all(nd["store_device"].startswith(card.type) for nd in nodes)
+        clients[:] = [_LinalgClient(nd["port"]) for nd in nodes]
+
+        tile_bytes = b * b * 8
+        panel0 = (lay.grid_rows - 1) * tile_bytes
+        lower = sum(1 for _ in lay.lower_coords()) * tile_bytes
+        out["panel0_bytes"], out["lower_triangle_bytes"] = panel0, lower
+        a_card = torch.tensor(a, device=card)
+        a_cpu = torch.tensor(a)
+        out["control"] = {
+            "card_ms": _ms_per_eval(lambda: torch.linalg.cholesky(a_card), card, LINALG_TIMED_CALLS),
+            "cpu_ms": _ms_per_eval(lambda: torch.linalg.cholesky(a_cpu), "cpu", LINALG_TIMED_CALLS),
+            "cpu_threads": torch.get_num_threads(),
+        }
+        lanes, factors = [], {}
+        for w in widths:
+            factors[w], lane = _linalg_width(lay, a, ref, clients[:w], card, timed)
+            lane["vs_card_control"] = out["control"]["card_ms"] / 1e3 / lane["wall_s"]
+            lane["vs_cpu_control"] = out["control"]["cpu_ms"] / 1e3 / lane["wall_s"]
+            lanes.append(lane)
+            gates[f"w{w}.within_1e-8_of_lapack"] = lane["max_abs_err_vs_lapack"] <= LINALG_ATOL
+            gates[f"w{w}.no_restores"] = lane["restores"] == 0 and lane["reshipped"] == 0
+            gates[f"w{w}.every_lower_tile_shipped_once"] = lane["every_lower_tile_shipped_once"]
+            gates[f"w{w}.step_bytes_within_w_plus_2_panels"] = (
+                lane["steady_step_bytes_max"] <= (w + 2) * panel0)
+            gates[f"w{w}.replica_step_bytes_below_lower_triangle"] = (
+                lane["replica_step_bytes_max"] < lower)
+            gates[f"w{w}.distribution_ships_the_lower_triangle_once"] = (
+                lower <= lane["distribution_bytes"] < 2 * lower)
+        out["lanes"] = lanes
+        marks["widths"] = time.perf_counter() - t0
+        tiles = _fed_ask(conns, "tiles")
+        gates["tiles_on_card"] = all(t["tile_devices"] == [str(card)] or not t["tiles"]
+                                     for t in tiles)
+
+        # Recovery: SIGKILL one width-4 node just before its CHOL_PANEL(1)
+        # and restart it from the fork server; the driver restores it.
+        rec = LINALG_RECOVERY
+        w, v = rec["width"], rec["victim"]
+        for c in clients[:w]:
+            c.reset()
+        victim_proc = procs[v]
+        rclients = list(clients[:w])
+        rclients[v] = _LinalgClient(nodes[v]["port"], victim_proc, rec["kill_before_call"])
+        restarted = []
+
+        def reconnect(p):
+            proc, conn = start_node()
+            (fresh,) = _fed_ask([conn], None, timeout=120.0)
+            restarted.append(fresh)
+            return _LinalgClient(fresh["port"])
+
+        clients.append(rclients[v])  # closed below with the rest
+        flight = []
+        from pytensor_federated_torch.telemetry import flightrec
+
+        was = flightrec.set_enabled(True)
+        flightrec.clear()
+        try:
+            t_rec = time.perf_counter()
+            chol = BlockedCholesky(lay, rclients, reconnect=reconnect, device=card)
+            l_rec = chol.factor(a)
+            rec_wall = time.perf_counter() - t_rec
+            flight = [e["kind"] for e in flightrec.events() if e["kind"].startswith("linalg.")]
+        finally:
+            flightrec.set_enabled(was)
+        if chol.clients[v] is not rclients[v]:
+            clients.append(chol.clients[v])  # the restarted node's client
+        bit_equal = bool((l_rec == factors[w][0]).all())
+        out["recovery"] = {**rec, "wall_s": rec_wall, "restores": chol.restores,
+                           "reshipped": [[p, list(c)] for p, c in chol.reshipped],
+                           "victim_exit": victim_proc.exitcode, "restarted": len(restarted),
+                           "flight": flight, "bit_equal_uninterrupted": bit_equal,
+                           "max_abs_err_vs_lapack": float(np.abs(l_rec.cpu().numpy() - ref).max())}
+        gates["recovery.victim_sigkilled"] = victim_proc.exitcode == -signal.SIGKILL
+        gates["recovery.restored"] = chol.restores >= 1 and len(restarted) == chol.restores
+        gates["recovery.only_victim_reships_columns_from_the_failed_step"] = bool(
+            chol.reshipped) and all(p == v and c[1] >= 1 for p, c in chol.reshipped)
+        gates["recovery.bit_equal_uninterrupted"] = bit_equal
+        marks["recovery"] = time.perf_counter() - t0
+
+        ok, out["gp"] = _linalg_gp(card)
+        gates["gp.blocked_within_tolerance_of_dense"] = ok
+        marks["gp"] = time.perf_counter() - t0
+        ok, out["fed"] = _linalg_fed(card, a)
+        gates["fed.ops_match_float64_cpu"] = ok
+        marks["fed"] = time.perf_counter() - t0
+        out["node_stops"] = _fed_ask([c for c, p in zip(conns, procs) if p.is_alive()], "stop")
+    finally:
+        for c in clients:
+            c.close()
+        _join_nodes(procs)
+    out["kernel_launches"] = linreg_reductions.launches - launches0
+    out["gates"] = gates
+    return all(gates.values()), out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
                                            "slice7", "slice8", "slice9", "slice10", "slice11",
-                                           "slice12", "slice13", "slice14", "slice15"],
+                                           "slice12", "slice13", "slice14", "slice15", "slice16"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
@@ -7004,7 +7455,7 @@ def main() -> int:
                              "multichain and seq only; slice13: device, build, nuts_large, "
                              "zero, parallel_axes, multihost and elastic only; slice14: "
                              "device, build and fed only; slice15: device, build, ppl and "
-                             "ppl_zero only")
+                             "ppl_zero only; slice16: device, build and linalg only")
     parser.add_argument("--multichain-seeds", default=",".join(map(str, MULTICHAIN_SEEDS)),
                         type=lambda v: tuple(int(x) for x in v.split(",")),
                         help="comma-separated seeds of the multichain phase's NUTS runs, "
@@ -7087,6 +7538,7 @@ def main() -> int:
         ("fed", phase_fed),
         ("ppl", phase_ppl),
         ("ppl_zero", phase_ppl_zero),
+        ("linalg", phase_linalg),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -7117,6 +7569,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in SLICE14]
     elif args.only == "slice15":
         phases = [ph for ph in phases if ph[0] in SLICE15]
+    elif args.only == "slice16":
+        phases = [ph for ph in phases if ph[0] in SLICE16]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -7185,10 +7639,11 @@ def main() -> int:
         # its three runs; in the fed phase over the mesh lane's gate and
         # timed evaluations, FederatedLogpGrad's and FederatedLogp's; the
         # ppl and ppl_zero phases count theirs, 0: the kernel is not on
-        # the ppl model's path).
+        # the ppl model's path; so does linalg, 0: the block stores and
+        # the fed ops compute outside the kernel, as in the JAX package).
         "launches": sum(lines[p].get("kernel_launches", 0)
                         for p in ("nuts", "nuts_large", "pool", "gateway", "optim", "multichain")
-                        + SLICE10 + SLICE13 + SLICE14 + SLICE15)
+                        + SLICE10 + SLICE13 + SLICE14 + SLICE15 + SLICE16)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

@@ -26,8 +26,11 @@ non-stationary ``linear`` trend kernel and composite specs
 Learned ``log_variance``, ``log_lengthscale``, ``log_noise``.  Every
 Cholesky is :func:`..utils.cholesky_or_nan`: no host sync, and NaN (as
 in JAX) for a covariance that is not positive definite, so a sampler
-rejects the proposal instead of crashing.  The arithmetic runs in the
-data's dtype (float32 from :func:`generate_gp_data`, as in JAX).
+rejects the proposal instead of crashing — except a posterior draw's of
+a concrete covariance of order >= 256, which the blocked
+:func:`..linalg.cholesky` factors (:func:`_posterior_chol`).  The
+arithmetic runs in the data's dtype (float32 from
+:func:`generate_gp_data`, as in JAX).
 """
 
 from __future__ import annotations
@@ -89,15 +92,51 @@ def _jitter_scale(variance):
     return torch.maximum(torch.sum(v), _prod_positive(v))
 
 
-def _posterior_chol(cov, vjit, policy=None):
-    """Jitter-stabilized Cholesky of a posterior covariance (batched or
-    not), NaN where it fails.
+#: Posterior covariances at or above this order route their draw
+#: Cholesky through the blocked factorization (:func:`..linalg.cholesky`)
+#: when the values are concrete.  Below it the dense kernel wins on
+#: dispatch overhead; tests shrink it to gate the two paths against each
+#: other on the same matrix.
+_BLOCKED_CHOL_MIN = 256
 
-    The dense factorization at every order: the JAX package sends a
-    concrete covariance of order >= 256 to its blocked right-looking
-    ``linalg.cholesky`` over a block-store pool, which this package has
-    not ported yet.  ``policy`` selects the contraction precision."""
+
+def _concrete(cov, vjit) -> bool:
+    """Whether ``cov`` (with its jitter ``vjit``) may leave the traced
+    world for the blocked factorization: not a ``torch.func`` transform's
+    wrapped tensor, not while a ``fed.program`` records its graph or a
+    CUDA graph is captured, and carrying no gradient (the blocked path
+    leaves autograd, where ``jax.grad`` would have made the value a
+    tracer)."""
+    from ..fed.lowering import _is_wrapped
+    from ..fed.primitives import _recorder
+
+    tensors = [t for t in (cov, vjit) if isinstance(t, torch.Tensor)]
+    if any(_is_wrapped(t) for t in tensors) or _recorder() is not None:
+        return False
+    if cov.is_cuda and torch.cuda.is_current_stream_capturing():
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def _posterior_chol(cov, vjit, policy=None, *, block: int = 128):
+    """Jitter-stabilized Cholesky of a posterior covariance.
+
+    A concrete 2-D covariance (:func:`_concrete`) of order >=
+    :data:`_BLOCKED_CHOL_MIN` factors through :func:`..linalg.cholesky`
+    (the blocked right-looking path, on ``cov``'s device, loud with a
+    ``BlockError`` on a covariance that is not positive definite);
+    everything else — batched covariances, small matrices, values under
+    ``torch.func``, a recording ``fed.program``, a CUDA graph capture or
+    a gradient — stays on the dense :func:`..utils.cholesky_or_nan`
+    (NaN where it fails).  The two paths are equality-gated against
+    each other in tests/test_torch_gp.py.  ``policy`` selects the
+    contraction precision."""
     n = cov.shape[-1]
+    if cov.dim() == 2 and n >= _BLOCKED_CHOL_MIN and _concrete(cov, vjit):
+        from ..linalg import cholesky as _blocked_cholesky
+
+        a = cov.detach() + torch.as_tensor(vjit, dtype=cov.dtype, device=cov.device) * _eye(n, cov)
+        return _blocked_cholesky(a, block=block, policy=policy, device=cov.device).to(cov.dtype)
     with matmul_precision_ctx(policy):
         return cholesky_or_nan(cov + vjit * _eye(n, cov))
 

@@ -433,3 +433,145 @@ def test_logp_and_grad_reads_nothing_back_to_the_host(family):
     with Record():
         logp_and_grad(p)
     assert seen and not (seen & _HOST_READS), seen & _HOST_READS
+
+
+class TestBlockedPosteriorChol:
+    """The posterior draw's Cholesky dispatches concrete covariances of
+    order >= ``_BLOCKED_CHOL_MIN`` onto the blocked factorization
+    (``linalg.cholesky``), as the JAX package does (tests/test_gp.py's
+    ``TestBlockedPosteriorChol``): the two paths agree on the same matrix
+    (float64 1e-12; float32 the JAX tests' rtol 1e-4 / atol 1e-5), and
+    every traced, batched, recorded or differentiated caller gets the
+    dense path."""
+
+    def _spd(self, n, dtype=np.float32, seed=0):
+        rng = np.random.default_rng(seed)
+        m = rng.normal(size=(n, n))
+        return (m @ m.T / n + np.eye(n)).astype(dtype)
+
+    @pytest.fixture
+    def blocked_calls(self, monkeypatch):
+        """Counts the blocked factorizations ``_posterior_chol`` starts."""
+        import pytensor_federated_torch.linalg as tlinalg
+
+        calls = []
+        real = tlinalg.cholesky
+
+        def spy(*args, **kwargs):
+            calls.append(kwargs)
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(tlinalg, "cholesky", spy)
+        return calls
+
+    @pytest.mark.parametrize("dtype,tol", [(np.float64, dict(rtol=1e-12, atol=1e-12)),
+                                           (np.float32, dict(rtol=1e-4, atol=1e-5))])
+    def test_blocked_path_matches_dense_path(self, monkeypatch, blocked_calls, dtype, tol):
+        cov = torch.tensor(self._spd(40, dtype, seed=21))
+        dense = tgp._posterior_chol(cov, 1e-4)
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 8)
+        blocked = tgp._posterior_chol(cov, 1e-4, block=16)
+        assert len(blocked_calls) == 1 and blocked_calls[0]["block"] == 16
+        assert blocked.dtype == cov.dtype and blocked.device == cov.device
+        np.testing.assert_allclose(blocked.numpy(), dense.numpy(), **tol)
+
+    def test_blocked_path_equals_the_jax_packages(self, monkeypatch):
+        """float64 on both sides (the JAX blocked route is numpy LAPACK)."""
+        a = self._spd(48, np.float64, seed=23)
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 8)
+        monkeypatch.setattr(jgp, "_BLOCKED_CHOL_MIN", 8)
+        with jax.enable_x64(True):
+            want = np.asarray(jgp._posterior_chol(jnp.asarray(a), 1e-4, block=16))
+        got = tgp._posterior_chol(torch.tensor(a), 1e-4, block=16)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+    def test_sparse_sample_identical_through_dispatch(self, monkeypatch, blocked_calls):
+        """The actual consumer: the same draws (same generator) whether
+        the covariance factors on the dense or the blocked path."""
+        _, td = _data(np.float32)
+        sgp = tgp.FederatedSparseGP(td, INDUCING)
+        p = _torch(_params("sqexp", np.float32))
+        xs = np.linspace(-1.5, 1.5, 9).astype(np.float32)
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 10**9)
+        via_dense = sgp.posterior_sample(p, torch.Generator().manual_seed(7), xs, num_draws=3)
+        assert not blocked_calls
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 2)
+        via_blocked = sgp.posterior_sample(p, torch.Generator().manual_seed(7), xs, num_draws=3)
+        assert len(blocked_calls) == 1
+        np.testing.assert_allclose(via_blocked.numpy(), via_dense.numpy(), rtol=1e-4, atol=1e-5)
+
+    def test_batched_covariance_takes_dense_path(self, monkeypatch, blocked_calls):
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 2)
+        cov = torch.stack([torch.tensor(self._spd(6, seed=s)) for s in (1, 2)])
+        out = tgp._posterior_chol(cov, 1e-4)
+        assert tuple(out.shape) == (2, 6, 6) and not blocked_calls
+        from pytensor_federated_torch.utils import cholesky_or_nan
+
+        np.testing.assert_array_equal(out.numpy(), cholesky_or_nan(cov + 1e-4 * torch.eye(6)).numpy())
+
+    def test_exact_gp_sample_keeps_the_dense_path(self, monkeypatch, blocked_calls):
+        """The exact GP's covariances are one per shard, batched."""
+        _, td = _data(np.float64)
+        m = tgp.FederatedExactGP(td)
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 2)
+        draws = m.posterior_sample(_torch(_params("sqexp", np.float64)), torch.Generator().manual_seed(2),
+                                   X_STAR, num_draws=2)
+        assert tuple(draws.shape) == (2, 2, X_STAR.shape[0]) and not blocked_calls
+
+    def test_a_covariance_requiring_grad_keeps_its_gradient(self, monkeypatch, blocked_calls):
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 2)
+        base = torch.tensor(self._spd(12, np.float64, seed=22))
+        cov = base.clone().requires_grad_(True)
+        out = tgp._posterior_chol(cov, 1e-4)
+        assert not blocked_calls and out.grad_fn is not None
+        (g,) = torch.autograd.grad(out.sum(), cov)
+        ref = base.clone().requires_grad_(True)
+        from pytensor_federated_torch.utils import cholesky_or_nan
+
+        (want,) = torch.autograd.grad(
+            cholesky_or_nan(ref + 1e-4 * torch.eye(12, dtype=torch.float64)).sum(), ref)
+        np.testing.assert_array_equal(g.numpy(), want.numpy())
+        # Under no_grad the same tensor is concrete: the blocked path.
+        with torch.no_grad():
+            blocked = tgp._posterior_chol(cov, 1e-4)
+        assert len(blocked_calls) == 1
+        np.testing.assert_allclose(blocked.numpy(), out.detach().numpy(), rtol=1e-12, atol=1e-12)
+
+    def test_vmap_and_a_recording_program_take_dense_path(self, monkeypatch, blocked_calls):
+        from pytensor_federated_torch import fed
+        from pytensor_federated_torch.parallel import make_mesh
+
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 2)
+        covs = torch.stack([torch.tensor(self._spd(6, np.float64, seed=s)) for s in (3, 4)])
+        mapped = torch.func.vmap(lambda c: tgp._posterior_chol(c, 1e-4))(covs)
+        assert not blocked_calls
+        np.testing.assert_array_equal(mapped.numpy(), tgp._posterior_chol(covs, 1e-4).numpy())
+
+        mesh = fed.MeshPlacement(make_mesh({"shards": 2}, devices=[torch.device("cpu")] * 2))
+
+        def model(c, data):
+            l = tgp._posterior_chol(c, 1e-4)  # the driver's part of the program
+            return fed.fed_sum(fed.fed_map(lambda d: (d * l.sum()).sum(), data))
+
+        data = torch.ones((2, 3), dtype=torch.float64)
+        got = fed.program(model, mesh)(covs[0], data)
+        assert not blocked_calls
+        want = model(covs[0], data)  # eager: concrete, so blocked
+        assert len(blocked_calls) == 1
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+
+    def test_not_positive_definite_raises_blocked_and_is_nan_dense_in_both(self, monkeypatch):
+        from pytensor_federated_tpu.linalg import BlockError as JBlockError
+        from pytensor_federated_torch.linalg import BlockError
+
+        bad = np.array([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+        dense = tgp._posterior_chol(torch.tensor(bad), 0.0)
+        with jax.enable_x64(True):
+            jdense = np.asarray(jgp._posterior_chol(jnp.asarray(bad), 0.0))
+        assert np.isnan(dense.numpy()).any() and np.isnan(jdense).any()
+        monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 2)
+        monkeypatch.setattr(jgp, "_BLOCKED_CHOL_MIN", 2)
+        with pytest.raises(BlockError, match="positive definite"):
+            tgp._posterior_chol(torch.tensor(bad), 0.0, block=2)
+        with pytest.raises(JBlockError, match="positive definite"):
+            jgp._posterior_chol(jnp.asarray(bad), 0.0, block=2)

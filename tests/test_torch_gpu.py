@@ -1330,3 +1330,129 @@ def test_ppl_vmapped_logp_on_the_card_equals_the_per_point_calls():
     batched = torch.func.vmap(c.logp)(stacked)
     single = torch.stack([c.logp(p) for p in points])
     np.testing.assert_allclose(batched.cpu().numpy(), single.cpu().numpy(), rtol=1e-6)
+
+
+def _spd64(n, seed):
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(n, n))
+    return m @ m.T / n + np.eye(n)
+
+
+@pytest.mark.gpu
+def test_block_store_on_the_card_matches_the_cpu_in_float64():
+    """Block stores holding their tiles on the card (float64, the H100's
+    float64 tensor cores) against the same factorization on the CPU and
+    LAPACK: within 1e-12; a store refuses a non-PD tile loudly."""
+    from pytensor_federated_torch.linalg import (
+        BlockedCholesky, BlockError, BlockLayout, LocalBlockClient, cholesky,
+    )
+
+    card = _cuda()
+    a = _spd64(200, 23)
+    lay = BlockLayout(200, 200, 64, 64)
+    clients = [LocalBlockClient(lay, device=card) for _ in range(3)]
+    assert all(c.store.device.type == "cuda" for c in clients)
+    l_card = BlockedCholesky(lay, clients, device=card).factor(a)
+    assert l_card.device.type == "cuda" and l_card.dtype == torch.float64
+    assert all(t.device.type == "cuda" for c in clients for t in c.store.tiles.values())
+    l_cpu = cholesky(a, block=64, device="cpu")
+    np.testing.assert_allclose(l_card.cpu().numpy(), l_cpu.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(l_card.cpu().numpy(), np.linalg.cholesky(a), rtol=0, atol=1e-12)
+    bad = a.copy()
+    bad[100, 100] = -1.0
+    with pytest.raises(BlockError, match="positive definite"):
+        cholesky(bad, block=64, device=card)
+
+
+@pytest.mark.gpu
+def test_block_store_recovery_on_the_card_is_bit_exact():
+    """A replica lost mid-factorization is restored from the driver's
+    recompute on the card: the factor equals the uninterrupted one bit
+    for bit, and only the victim re-ships."""
+    from pytensor_federated_torch.linalg import BlockedCholesky, BlockLayout, LocalBlockClient
+
+    card = _cuda()
+    a = _spd64(320, 24)
+    lay = BlockLayout(320, 320, 64, 64)
+
+    class Dying:
+        def __init__(self):
+            self.inner, self.calls = LocalBlockClient(lay, device=card), 0
+
+        def evaluate(self, *arrays):
+            self.calls += 1
+            if self.calls == 4:  # its CHOL_PANEL(1)
+                raise ConnectionError("replica killed")
+            return self.inner.evaluate(*arrays)
+
+        def close(self):
+            pass
+
+    bc = BlockedCholesky(lay, [LocalBlockClient(lay, device=card), Dying()],
+                         reconnect=lambda p: LocalBlockClient(lay, device=card), device=card)
+    l = bc.factor(a)
+    clean = BlockedCholesky(lay, [LocalBlockClient(lay, device=card) for _ in range(2)],
+                            device=card).factor(a)
+    assert bc.restores == 1
+    assert bc.reshipped and all(p == 1 and j >= 1 for p, (_, j) in bc.reshipped)
+    assert torch.equal(l, clean)
+
+
+@pytest.mark.gpu
+def test_posterior_chol_on_the_card_dispatches_and_keeps_graph_captures_dense(monkeypatch):
+    """A concrete covariance on the card takes the blocked path (its
+    result on the card, within 1e-10 of the dense one in float64); under
+    a CUDA graph capture the same call takes the dense path, which reads
+    nothing back to the host (the blocked path's host reads would fail
+    the capture), and its replay gives the eager dense factor within
+    1e-12 (cuSOLVER's captured factorization need not give its eager
+    bits)."""
+    import pytensor_federated_torch.linalg as tlinalg
+    import pytensor_federated_torch.models.gp as tgp
+
+    card = _cuda()
+    cov = torch.tensor(_spd64(300, 25), device=card)
+    dense = tgp._posterior_chol(cov, 1e-4)
+    calls = []
+    real = tlinalg.cholesky
+    monkeypatch.setattr(tlinalg, "cholesky", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(tgp, "_BLOCKED_CHOL_MIN", 256)
+    blocked = tgp._posterior_chol(cov, 1e-4, block=128)
+    assert calls == [1]
+    assert blocked.device == cov.device and blocked.dtype == cov.dtype
+    torch.testing.assert_close(blocked, dense, rtol=1e-10, atol=1e-10)
+    static = cov.clone()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tgp._posterior_chol(static, 1e-4)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tgp._posterior_chol(static, 1e-4)
+    assert calls == [1, 1]  # the warm-up's; none in the capture
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, dense, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_linalg_fed_ops_on_a_mesh_of_the_card_match_float64_on_the_cpu():
+    from pytensor_federated_torch import fed, linalg
+    from pytensor_federated_torch.parallel import make_mesh
+
+    card = _cuda()
+    placement = fed.MeshPlacement(make_mesh({"shards": 4}, devices=[card] * 4))
+    rng = np.random.default_rng(26)
+    a, b = rng.normal(size=(128, 96)), rng.normal(size=(96, 64))
+    got = linalg.matmul(a, b, n_shards=4, placement=placement, device=card)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), a @ b, rtol=1e-12, atol=1e-12)
+    s = _spd64(96, 27)
+    x = rng.normal(size=96)
+    q = linalg.block_quadratic_form(s, x, n_shards=4, placement=placement, device=card)
+    np.testing.assert_allclose(float(q), x @ s @ x, rtol=1e-12)
+    l = np.linalg.cholesky(s)
+    sol = linalg.triangular_solve(l, x, block=16, placement=placement, n_shards=4, device=card)
+    np.testing.assert_allclose(sol.cpu().numpy(), np.linalg.solve(l, x), rtol=1e-10, atol=1e-10)

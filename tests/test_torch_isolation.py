@@ -24,6 +24,7 @@ SUBPACKAGES = (
     "demos.demo_model", "optim", "diagnostics", "fed", "fed.primitives", "fed.placements",
     "fed.lowering", "fed.batching", "bridge", "bridge.grouping", "parallel.federated",
     "ppl.distributions", "ppl.handlers", "ppl.radon", "ppl.compiler", "ppl.svi", "version",
+    "linalg", "linalg.blocks", "linalg.service", "linalg.ops",
 )
 
 
@@ -84,6 +85,12 @@ def test_ppl_alone_with_every_name_loads_no_jax_or_grpc():
     assert "BAD [] []" in out.stdout, out.stdout
     assert _all_of(ROOT / "pytensor_federated_torch" / "ppl" / "__init__.py") == _all_of(
         ROOT / "pytensor_federated_tpu" / "ppl" / "__init__.py")
+
+
+def test_linalg_exports_the_jax_packages_all():
+    """``linalg.__all__`` is the JAX package's, name for name."""
+    assert _all_of(ROOT / "pytensor_federated_torch" / "linalg" / "__init__.py") == _all_of(
+        ROOT / "pytensor_federated_tpu" / "linalg" / "__init__.py")
 
 
 #: The host-federation modules of the replica pool, the lanes (gRPC's
