@@ -22,6 +22,7 @@
     python3 chip_smoke.py --only slice14   # device, build, fed
     python3 chip_smoke.py --only slice15   # device, build, ppl, ppl_zero
     python3 chip_smoke.py --only slice16   # device, build, linalg
+    python3 chip_smoke.py --only slice17   # device, build, bridge
 
 Run from the root of a checkout on a machine with an NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  With no arguments
@@ -465,6 +466,36 @@ it runs every phase and needs one card.  Phases, one JSON line each:
    ``block_quadratic_form`` and ``triangular_solve`` on a 4-slot mesh of
    the card in float64 against float64 on the CPU (1e-10 of the largest
    entry).
+38. ``bridge`` — the PyTensor/PyMC bridge.  PyTensor and PyMC are not
+   installed on the GPU host, so the port's real bridge glue and
+   ``demos/demo_pymc.py`` run under the port's fakes
+   (``tests/torch_pytensor_shim.py``, ``tests/torch_pymc_shim.py``; no
+   JAX), the free variables on the card.  ``demo_pymc`` at its own size
+   (8 shards x 64, seed 123): the potential and its gradients through the
+   PyTorch linker's stand-in (the op's ``torch_fn``, the kernel) against
+   the ``perform`` lane (``host_fn``: float32 across the numpy boundary,
+   the kernel) within 1e-5 relative at 3 points; the federated model
+   against ``build_native_model`` within 1e-4 max(1, |logp|); the MAP
+   (slope within 0.1 of 2.0, intercept within 0.4 of 1.5, sigma in (0.3,
+   0.8)); ``main()``'s NUTS, 2 x (200 + 200), random_seed 42, its slope
+   median within 0.15 of 2.0.  The data term at 8 x 131,072 through
+   ``federated_potential``'s torch lane against float64 on the CPU (the
+   model phases' tolerances), one launch per evaluation.  The rewrite:
+   three ``FederatedLogpGradOp``s over disjoint shard subsets of that
+   data, each on the kernel through its ``host_fn``, fused by the rewriter
+   registered in ``optdb`` (``fast_run``, position 90) into one
+   ``ParallelFederatedOp``: the unfused graph's bits, 3 launches per
+   fused evaluation, the same bits from a pickled and restored op; both
+   graphs' wall clock recorded.  The ``fed`` lane: two
+   ``FederatedLogpGrad`` potentials of the flagship's data term
+   (``linreg_shard_logp``) over one 4-slot mesh of the card, composed by
+   ``fused_torch_callable`` into one ``fed.program``: values and
+   gradients within float32 rounding of the members evaluated apart
+   (whether the bits are equal recorded), launches per evaluation
+   recorded; the same program under ``torch.func.vmap`` over 3 chains
+   with one backward through the chains' summed logps, each chain within
+   float32 rounding of its own call and the backward's gradients equal
+   to the returned ones.  Kernel launches over the phase above 0.
 
 Phases 10-19, 27, 29, 31, 35, 36 and 37 launch no kernel of the port:
 the JAX package computes these models outside Pallas, and so does the
@@ -496,7 +527,7 @@ the nuts_large phase (the mesh phase's reference posterior) and phases
 phase's reference posterior) and phases 28-29, with ``--only slice13``
 the nuts_large phase and phases 30-33, with ``--only slice14`` phase 34
 only, with ``--only slice15`` phases 35-36 only, with ``--only slice16``
-phase 37 only;
+phase 37 only, with ``--only slice17`` phase 38 only;
 none of these prints the kernel record line or the device line.  Any
 failed phase makes the script exit non-zero; without
 PyTorch, without CUDA, or without the package beside it, it exits
@@ -506,6 +537,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import faulthandler
 import hashlib
 import json
@@ -641,7 +673,7 @@ PHASE_EXPECTED_S = {
     "vi": 20, "particles": 10, "sgld": 10, "sbc": 10, "checkpoint": 12, "demos": 40,
     "optim": 15, "mesh": 50, "multichain": 50, "seq": 15,
     "zero": 5, "parallel_axes": 3, "multihost": 12, "elastic": 20, "fed": 20,
-    "ppl": 40, "ppl_zero": 20, "linalg": 30,
+    "ppl": 40, "ppl_zero": 20, "linalg": 30, "bridge": 30,
 }
 DEADLINE_FACTOR, DEADLINE_MIN_S = 3.0, 60.0
 # A process left behind gets this long after SIGTERM before SIGKILL.
@@ -900,20 +932,54 @@ def _time_ms(fn, flush, *, reps=50):
     return statistics.median(times)
 
 
-def _card_events(fn, reps, before=None):
+# Idle time on both sides of the profiled calls: a kernel launched at once
+# after the profiler starts is now and then left out of its record
+# (``--profiler-window`` counts how often, padded and not).
+PROFILE_PAD_S = 0.02
+
+
+def _card_events(fn, reps, before=None, pad_s=PROFILE_PAD_S):
     """The profiler's record of what ran on the card during ``reps`` calls
-    of ``fn`` (each after ``before()``, if given), after one warm-up call."""
+    of ``fn`` (each after ``before()``, if given), after one warm-up call,
+    in a window padded by ``pad_s`` on both sides."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         for _ in range(reps):
             if before is not None:
                 before()
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profiler_window(readings, calls=10):
+    """How often the profiler leaves a kernel out of its record: at three
+    shapes, ``readings`` profiles of ``calls`` calls of ``linreg_reductions``
+    with no padding and with ``PROFILE_PAD_S``; for each, the histogram of
+    kernels recorded per reading (``calls`` is a whole record)."""
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+
+    dev = torch.device("cuda")
+    cases = {
+        "8x131072": _case(*LARGE_PATH, seed=300, device=dev),
+        "8x131072_C1": _chain_case(*LARGE_PATH, 1, seed=401, device=dev),
+        "8x64_C2560": _chain_case(*FLAGSHIP, 2560, seed=402, device=dev),
+    }
+    out = {}
+    for name, inputs in cases.items():
+        for pad_s in (0.0, PROFILE_PAD_S):
+            hist = collections.Counter(
+                len(_card_events(lambda: linreg_reductions(*inputs), calls, pad_s=pad_s))
+                for _ in range(readings))
+            out[f"{name}/pad={pad_s}"] = {
+                "hist": dict(hist), "short": sum(n for k, n in hist.items() if k != calls)}
+    return {"profiler_window": {"calls_per_reading": calls, "readings": readings,
+                                "cases": out}}
 
 
 def _device_ms(fn, flush, *, reps=30):
@@ -930,10 +996,10 @@ def _cuda_launches_per_call(fn, calls=10):
     names; ``None`` when the profiler records no device activity.  A
     profile that recorded nothing at all, or a count that is not a whole
     number of launches per call, is taken again, up to 3 times in all:
-    the profiler on the GPU host now and then returns an empty record or
-    drops events (9 launches recorded over 10 calls, whose results were
-    all right); every call launches the same kernels, so a whole count
-    per call is never retaken, and the last reading stands."""
+    a reading whose window was not padded lost events now and then (9
+    launches recorded over 10 calls, whose results were all right);
+    every call launches the same kernels, so a whole count per call is
+    never retaken, and the last reading stands."""
     on_card = []
     for _ in range(3):
         on_card = [e.name for e in _card_events(fn, calls)]
@@ -7437,11 +7503,438 @@ def phase_linalg(dev="cuda", widths=LINALG_WIDTHS, timed=LINALG_TIMED):
     return all(gates.values()), out
 
 
+# Slice 17: the PyTensor/PyMC bridge.  PyTensor and PyMC are not
+# installed on this host, so the phase runs the port's REAL bridge glue
+# and demos/demo_pymc.py under the port's fakes (tests/torch_pytensor_shim.py,
+# tests/torch_pymc_shim.py; they import no JAX), with the free variables
+# on the card.  Four lanes:
+# - demo_pymc at the demo's own size (8 shards x 64, seed 123): the
+#   potential and its gradients through the PyTorch linker's stand-in
+#   (the op's torch_fn: the kernel on the card) against the perform lane
+#   (host_fn: float32 across the numpy boundary, the kernel again) at
+#   BRIDGE_POINTS points; the federated model against build_native_model
+#   (tests/test_demo_pymc_shim.py's tolerance); find_MAP; main()'s NUTS,
+#   2 x (200 + 200), random_seed 42.
+# - the data term at the flagship's width, 8 x 131,072, through
+#   federated_potential's torch lane against a float64 plain evaluation
+#   on the CPU (the model phases' tolerances).
+# - the rewrite: three FederatedLogpGradOps over disjoint shard subsets of
+#   that data, each backed by the kernel through its host_fn, fused by the
+#   optdb-registered rewriter into one ParallelFederatedOp: the same bits
+#   as the unfused graph, one launch per member and evaluation, the same
+#   bits from a pickled and restored op; wall clock of both recorded.
+# - the fed lane: two FederatedLogpGrad potentials of the flagship's data
+#   term (linreg_shard_logp; the second's y shifted by 0.25) over one
+#   4-slot mesh of the card, each with its own MeshPlacement, composed by
+#   fused_torch_callable into ONE fed.program: values and gradients
+#   against the members evaluated apart.
+SLICE17 = ("bridge",)
+BRIDGE_DEMO = dict(n_shards=8, n_obs=64, draws=200, tune=200, chains=2)  # demo_pymc's defaults
+BRIDGE_POINTS = 3
+BRIDGE_LANES_RTOL = 1e-5
+BRIDGE_NATIVE_RTOL = 1e-4  # tests/test_demo_pymc_shim.py: 1e-4 max(1, |logp|)
+BRIDGE_SUBSETS = ((0, 1, 2), (3, 4, 5), (6, 7))
+BRIDGE_TIMED = 20  # evaluations timed per lane (median)
+BRIDGE_FED_SHIFT = 0.25
+BRIDGE_FED_CHAINS = 3  # the fed lane's chain batch under torch.func.vmap, as a sampler's
+
+
+def _bridge_fakes():
+    """The port's fake pymc (and through it the fake pytensor), from the
+    checkout's ``tests/``."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_pymc_shim
+
+    return torch_pymc_shim
+
+
+def _rel(got, want) -> float:
+    """Largest elementwise |got - want| / |want| (0 where both are 0)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    return float(np.max(np.where(err == 0, 0.0, err / np.maximum(np.abs(want), 1e-300))))
+
+
+def _bridge_demo(ns, card, demo):
+    """demo_pymc under the fakes: the two lanes, the native model, the MAP
+    and main()'s NUTS.  On the card the NUTS run replays its batched
+    evaluation from a CUDA graph (the fakes' ``cuda_graph``): a replay
+    never reaches the kernel wrapper's host-side counter, so, as in the
+    nuts phase, the run's own graph is held bit for bit against eager
+    calls of the same model and its kernel nodes are counted."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+    from pytensor_federated_torch.samplers.mcmc import (
+        make_batch_logp_and_grad,
+        make_flat_logp_and_grad,
+    )
+
+    dm = ns.demo
+    data, _ = dm.generate_node_data(demo["n_shards"], n_obs=demo["n_obs"], seed=123, device=card)
+    torch_model = dm.build_model(data)
+    host_model = dm.build_model(data, use_torch_fn=False)
+    native = dm.build_native_model(data)
+    funcify = sys.modules["pytensor.link.pytorch.dispatch"].pytorch_funcify
+    outputs = torch_model.potentials[0].owner.outputs
+    lane_fn = ns.bridge.compile_graph_to_torch(outputs, [rv.var for rv in torch_model.free_rvs],
+                                               funcify)
+    host_outputs = host_model.potentials[0].owner.outputs
+    fed_logp, native_logp = torch_model.logp_fn(), native.logp_fn()
+    rng = np.random.default_rng(17)
+    lanes, parity = [], []
+    for _ in range(BRIDGE_POINTS):
+        point = {"intercept": np.float32(rng.normal(1.5, 0.3)),
+                 "offsets": rng.normal(0.0, 0.2, size=demo["n_shards"]).astype(np.float32),
+                 "slope": np.float32(rng.normal(2.0, 0.3)),
+                 "sigma": np.float32(np.exp(rng.normal(-0.5, 0.2)))}
+        names = [rv.name for rv in torch_model.free_rvs]
+        t_parts = [t.detach().cpu().double().numpy()
+                   for t in lane_fn(*[torch.as_tensor(point[n], device=card) for n in names])]
+        h_parts = ns.bridge.eval_graph(
+            host_outputs, {rv.var: point[rv.name] for rv in host_model.free_rvs})
+        lanes.append({"rel_err": max(_rel(t, h) for t, h in zip(t_parts, h_parts)),
+                      "bits_equal": all(np.array_equal(np.float32(t), np.float32(h))
+                                        for t, h in zip(t_parts, h_parts))})
+        u = {n: torch.as_tensor(point[n], device=card) for n in names}
+        u["sigma"] = torch.log(u["sigma"])
+        a, b = float(fed_logp(u).detach()), float(native_logp(u).detach())
+        parity.append({"federated": a, "native": b, "abs_err": abs(a - b),
+                       "limit": BRIDGE_NATIVE_RTOL * max(1.0, abs(a))})
+    t0 = time.perf_counter()
+    with torch_model:
+        map_est = ns.pymc.find_MAP(progressbar=False)
+    map_s = time.perf_counter() - t0
+    args = ["--n-shards", str(demo["n_shards"]), "--n-obs", str(demo["n_obs"]),
+            "--draws", str(demo["draws"]), "--tune", str(demo["tune"]),
+            "--chains", str(demo["chains"]), "--device", str(card)]
+    printed = io.StringIO()
+    _sync(card)
+    before = linreg_reductions.launches
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        idata = dm.main(args)
+    _sync(card)
+    main_s = time.perf_counter() - t0
+    host_launches = linreg_reductions.launches - before  # before the check's eager calls
+    res = idata.result
+    graph, launches, check_launches = {}, host_launches, 0
+    if card.type == "cuda":
+        flat_logp, flat0, unravel, _ = make_flat_logp_and_grad(
+            torch_model.logp_fn(), torch_model.initial_unconstrained())
+        lg = make_batch_logp_and_grad(flat_logp, unravel)
+        before = linreg_reductions.launches
+        graph = _graph_check(res.extra["graph"], lg,
+                             _graph_points(flat0, demo["chains"], card, 1042), expected=1,
+                             timed=5)
+        check_launches = linreg_reductions.launches - before
+        launches = _graphed_launches(graph, host_launches, res.extra["graph_replays"])
+        graph["graph_replays"] = res.extra["graph_replays"]
+    post = idata.posterior
+    slope_median = float(post["slope"].median())
+    depth = res.stats["depth"].float()
+    gates = {
+        "lanes_agree": all(r["rel_err"] <= BRIDGE_LANES_RTOL for r in lanes),
+        "federated_equals_native": all(r["abs_err"] <= r["limit"] for r in parity),
+        "map_slope": abs(map_est["slope"] - 2.0) < 0.1,
+        "map_intercept": abs(map_est["intercept"] - 1.5) < 0.4,
+        "map_sigma": 0.3 < map_est["sigma"] < 0.8,
+        "nuts_slope_median": abs(slope_median - 2.0) < 0.15,
+        "nuts_finite": all(np.isfinite(np.asarray(v)).all() for v in post.values()),
+        "nuts_graph_one_launch_per_replay": (
+            graph.get("launch_ok", False) and graph.get("replay_bits_equal_eager", False)
+            and graph.get("graph_replays", 0) > 0) if card.type == "cuda" else True,
+    }
+    return gates, {
+        "size": [demo["n_shards"], demo["n_obs"]], "lanes": lanes, "native": parity,
+        "map": {k: float(v) for k, v in map_est.items() if np.ndim(v) == 0}, "map_s": map_s,
+        "main_args": args, "main_printed": printed.getvalue().splitlines(), "main_s": main_s,
+        "nuts": {"chains": demo["chains"], "tune": demo["tune"], "draws": demo["draws"],
+                 "slope_median": slope_median,
+                 "intercept_median": float(post["intercept"].median()),
+                 "sigma_median": float(post["sigma"].median()),
+                 "mean_depth": float(depth.mean()), "max_depth": int(depth.max()),
+                 "divergences": int(res.stats["diverging"].sum()),
+                 "cuda_graph": card.type == "cuda", "graph": graph,
+                 "host_kernel_launches": host_launches, "kernel_launches": launches,
+                 "check_launches": check_launches},
+    }
+
+
+def _bridge_float64_term(data, A, slope, sigma):
+    """The data term and its gradients w.r.t. (A, slope, sigma) in float64
+    on the CPU, by the kernel's plain version."""
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions_ref
+
+    (x, y), mask = data.tree()
+    A, slope, sigma = (torch.as_tensor(t).detach().cpu().double() for t in (A, slope, sigma))
+    ll, gmu, gx, gz = linreg_reductions_ref(
+        (torch.zeros((), dtype=torch.float64), slope, torch.log(sigma)), A,
+        *(t.detach().cpu().double() for t in (x, y, mask)))
+    return [ll.sum(), gmu, gx.sum(), gz.sum() / sigma]
+
+
+def _bridge_data_term(ns, card, n_obs):
+    """The data term at 8 x ``n_obs`` through federated_potential's torch
+    lane against float64 on the CPU; ms and launches per evaluation."""
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+
+    data, offsets = ns.demo.generate_node_data(8, n_obs=n_obs, seed=123, device=card)
+    torch_fn, host_fn = ns.demo.make_federated_data_logp(data)
+    TT = ns.bridge.TensorType
+    A, slope, sigma = TT("float32", (8,))(), TT("float32", ())(), TT("float32", ())()
+    pot = ns.bridge.pytensor_ops.federated_potential(host_fn, A, slope, sigma, torch_fn=torch_fn)
+    funcify = sys.modules["pytensor.link.pytorch.dispatch"].pytorch_funcify
+    fn = ns.bridge.compile_graph_to_torch(pot.owner.outputs, [A, slope, sigma], funcify)
+    rows = []
+    for shift in (0.05, -0.08):
+        At = torch.as_tensor(1.5 + offsets + shift, dtype=torch.float32, device=card)
+        st = torch.tensor(2.0 - 2 * shift, device=card)
+        sg = torch.tensor(0.5 + shift, device=card)
+        before = linreg_reductions.launches
+        got = fn(At, st, sg)
+        _sync(card)
+        launches = linreg_reductions.launches - before
+        ref = _bridge_float64_term(data, At, st, sg)
+        rows.append({
+            "launches": launches,
+            "value_rel_err_f64": abs(float(got[0]) - float(ref[0])) / abs(float(ref[0])),
+            "grad_err_over_tol_f64": _err_over_tol(dict(enumerate(got[1:])), dict(enumerate(ref[1:])),
+                                                   MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX),
+        })
+    args = (torch.as_tensor(1.5 + offsets, dtype=torch.float32, device=card),
+            torch.tensor(2.0, device=card), torch.tensor(0.5, device=card))
+    ms = _ms_per_eval(lambda: fn(*args), card, BRIDGE_TIMED)
+    gates = {
+        "value_within_f32_of_f64": all(r["value_rel_err_f64"] <= MODEL_VALUE_RTOL for r in rows),
+        "grads_within_f32_of_f64": all(r["grad_err_over_tol_f64"] <= 1.0 for r in rows),
+        "one_launch_per_evaluation": all(r["launches"] == (card.type == "cuda") for r in rows),
+    }
+    return gates, {"size": [8, n_obs], "points": rows, "ms_per_eval": ms}
+
+
+def _bridge_graph(ns, terms):
+    """Three FederatedLogpGradOps over disjoint shard subsets, their logps
+    added; inputs [A_0, A_1, A_2, slope, sigma]."""
+    TT = ns.bridge.TensorType
+    As = [TT("float32", (len(s),))() for s in BRIDGE_SUBSETS]
+    slope, sigma = TT("float32", ())(), TT("float32", ())()
+    lps, grads = [], []
+    for A, (_, host_fn) in zip(As, terms):
+        lp, *g = ns.bridge.pytensor_ops.FederatedLogpGradOp(host_fn)(A, slope, sigma)
+        lps.append(lp)
+        grads += g
+    total = lps[0]
+    for lp in lps[1:]:
+        total = total + lp
+    return ns.bridge.FunctionGraph([*As, slope, sigma], [total, *grads])
+
+
+def _bridge_rewrite(ns, card, n_obs, timed):
+    """The fusion rewrite over three kernel-backed ops: bits, launches,
+    pickling, wall clock."""
+    import pickle
+
+    import numpy as np
+
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+
+    data, offsets = ns.demo.generate_node_data(8, n_obs=n_obs, seed=123, device=card)
+    (x, y), mask = data.tree()
+    terms = []
+    for subset in BRIDGE_SUBSETS:
+        idx = torch.as_tensor(subset, device=card)
+        part = pft.ShardedData(data=(x[idx], y[idx]), mask=mask[idx])
+        terms.append(ns.demo.make_federated_data_logp(part))
+    values = [np.float32(1.5 + offsets[list(s)] + 0.05) for s in BRIDGE_SUBSETS]
+    values += [np.float32(1.9), np.float32(0.55)]
+    unfused, fused_fg = _bridge_graph(ns, terms), _bridge_graph(ns, terms)
+    ns.bridge.optdb.query("federated_parallel_fusion")["obj"].rewrite(fused_fg)
+    fused = [n for n in fused_fg.toposort()
+             if isinstance(n.op, ns.bridge.fusion.ParallelFederatedOp)]
+    run = lambda fg: ns.bridge.eval_graph(fg.outputs, dict(zip(fg.inputs, values)))
+    want = run(unfused)
+    before = linreg_reductions.launches
+    got = run(fused_fg)
+    _sync(card)
+    launches = linreg_reductions.launches - before
+    got2 = run(fused_fg)
+    node = fused[0] if len(fused) == 1 else None
+    pickled_bits, ops = False, [n.op for n in fused]
+    if node is not None:
+        op2 = pickle.loads(pickle.dumps(node.op))
+        ops.append(op2)
+        TT = ns.bridge.TensorType
+        new_in = [TT(v.type.dtype, v.type.shape)() for v in node.inputs]
+        outs = op2(*new_in)
+        given = {v: values[fused_fg.inputs.index(v)] for v in node.inputs}
+        direct = ns.bridge.eval_graph(node.outputs, given)
+        restored = ns.bridge.eval_graph(outs, dict(zip(new_in, [given[v] for v in node.inputs])))
+        pickled_bits = all(np.array_equal(a, b) for a, b in zip(direct, restored))
+    ms = {"unfused": _ms_per_eval(lambda: run(unfused), card, timed),
+          "fused": _ms_per_eval(lambda: run(fused_fg), card, timed)}
+    for op in ops:  # the fused ops' member threads end with the lane
+        pool = op.__dict__.get("_pool")
+        if pool is not None:
+            pool.shutdown()
+    gates = {
+        "one_fused_op_of_three": node is not None and len(node.op.members) == 3,
+        "registered_at_90_fast_run": (
+            ns.bridge.optdb.query("federated_parallel_fusion")["position"] == 90
+            and "fast_run" in ns.bridge.optdb.query("federated_parallel_fusion")["tags"]),
+        "bits_equal_unfused": all(np.array_equal(a, b) for a, b in zip(got, want)),
+        "bits_equal_rerun": all(np.array_equal(a, b) for a, b in zip(got, got2)),
+        "launches_per_fused_evaluation": launches == (3 if card.type == "cuda" else 0),
+        "pickled_op_same_bits": pickled_bits,
+    }
+    return gates, {"size": [8, n_obs], "subsets": [list(s) for s in BRIDGE_SUBSETS],
+                   "launches_per_fused_evaluation": launches, "ms_per_eval": ms,
+                   "timed_evals": timed}
+
+
+def _bridge_fed_lane(card, n_obs, slots, timed):
+    """Two FederatedLogpGrad potentials composed into one fed.program by
+    fused_torch_callable, against the members apart."""
+    import pytensor_federated_torch as pft
+    from pytensor_federated_torch import fed
+    from pytensor_federated_torch.bridge.core import fused_torch_callable, member_torch_callable
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions, linreg_shard_logp
+
+    (xy, mask, sid) = _kernel_flagship(card, n_obs)
+    trees = [(xy, mask, sid), ((xy[0], xy[1] + BRIDGE_FED_SHIFT), mask, sid)]
+    mesh = pft.make_mesh({"shards": slots}, devices=[card] * slots)
+    evs = [fed.FederatedLogpGrad(linreg_shard_logp, t, placement=fed.MeshPlacement(mesh),
+                                 device=card) for t in trees]
+    fused = fused_torch_callable(
+        [member_torch_callable("logp_grad", ev.torch_fn, name=f"m{i}") for i, ev in enumerate(evs)],
+        [1, 1])
+    composed = fused.__qualname__.startswith("_fused_fed_callable")
+    g = torch.Generator(device="cpu").manual_seed(17)
+    params = []
+    for _ in evs:
+        p = {k: torch.tensor(v + 0.05 * float(torch.randn((), generator=g)), device=card)
+             for k, v in (("intercept", 1.5), ("slope", 2.0), ("log_sigma", math.log(0.5)))}
+        p["offsets"] = (0.3 * torch.randn(8, generator=g)).to(card)
+        params.append(p)
+    fused(*params)  # records the joint program
+    for ev, p in zip(evs, params):
+        ev.torch_fn(p)
+    _sync(card)
+    before = linreg_reductions.launches
+    lp_a, g_a, lp_b, g_b = fused(*params)
+    _sync(card)
+    launches_fused = linreg_reductions.launches - before
+    before = linreg_reductions.launches
+    apart = [ev.torch_fn(p) for ev, p in zip(evs, params)]
+    _sync(card)
+    launches_apart = linreg_reductions.launches - before
+    rows = []
+    for lp, gr, (lp0, (gr0,)) in ((lp_a, g_a, apart[0]), (lp_b, g_b, apart[1])):
+        rows.append({
+            "value_rel_err": abs(float(lp.detach()) - float(lp0.detach())) / abs(float(lp0.detach())),
+            "grad_err_over_tol": _err_over_tol(gr, gr0, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX),
+            "value_bits_equal": torch.equal(lp.detach(), lp0.detach()),
+            "grad_bits_equal": all(torch.equal(gr[k], gr0[k]) for k in gr),
+        })
+    ms = {"fused": _ms_per_eval(lambda: fused(*params), card, timed),
+          "apart": _ms_per_eval(lambda: [ev.torch_fn(p) for ev, p in zip(evs, params)],
+                                card, timed)}
+    chains = _bridge_fed_chains(fused, params, card, g)
+    gates = {
+        "composed_one_program": composed,
+        "values_within_f32": all(r["value_rel_err"] <= MODEL_VALUE_RTOL for r in rows),
+        "grads_within_f32": all(r["grad_err_over_tol"] <= 1.0 for r in rows),
+        "chains_within_f32": (chains["value_rel_err"] <= MODEL_VALUE_RTOL
+                              and chains["grad_err_over_tol"] <= 1.0),
+        "chains_backward_first_order": chains["backward_err_over_tol"] <= 1.0,
+    }
+    return gates, {"size": [8, n_obs], "slots": slots, "members": rows,
+                   "launches_per_fused_evaluation": launches_fused,
+                   "launches_per_evaluation_apart": launches_apart, "chains": chains,
+                   "ms_per_eval": ms, "timed_evals": timed}
+
+
+def _bridge_fed_chains(fused, params, card, g):
+    """The fused program under ``torch.func.vmap`` over a chain batch, as
+    a sampler batches it, then one ``torch.autograd.grad`` of the chains'
+    summed logps: each chain within float32 rounding of its own fused
+    call, and the backward (the kernel's, first order) equal to the
+    gradients the program returned."""
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+
+    C = BRIDGE_FED_CHAINS
+    batch = [{k: (v.expand(C, *v.shape) + 0.01 * torch.randn(C, *v.shape, generator=g).to(card)
+                  ).requires_grad_(True) for k, v in p.items()} for p in params]
+    before = linreg_reductions.launches
+    outs = torch.func.vmap(fused)(*batch)
+    leaves = [t for p in batch for t in p.values()]
+    back = torch.autograd.grad(sum(lp.sum() for lp in outs[0::2]), leaves)
+    _sync(card)
+    launches = linreg_reductions.launches - before
+    back = iter(back)
+    backward_err = max(_err_over_tol({k: next(back) for k in p}, gr, MODEL_GRAD_RTOL,
+                                     MODEL_GRAD_ATOL_OF_MAX)
+                       for p, gr in zip(batch, outs[1::2]))
+    value_err = grad_err = 0.0
+    for c in range(C):
+        one = fused(*[{k: v[c].detach() for k, v in p.items()} for p in batch])
+        for lp, gr, lp1, gr1 in zip(outs[0::2], outs[1::2], one[0::2], one[1::2]):
+            value_err = max(value_err, abs(float(lp[c].detach()) - float(lp1.detach()))
+                            / abs(float(lp1.detach())))
+            grad_err = max(grad_err, _err_over_tol({k: v[c] for k, v in gr.items()}, gr1,
+                                                   MODEL_GRAD_RTOL, MODEL_GRAD_ATOL_OF_MAX))
+    return {"chains": C, "launches": launches, "value_rel_err": value_err,
+            "grad_err_over_tol": grad_err, "backward_err_over_tol": backward_err}
+
+
+def phase_bridge(dev="cuda", demo=BRIDGE_DEMO, n_obs=LARGE_PATH[1], slots=FED_SLOTS,
+                 timed=BRIDGE_TIMED):
+    """Slice 17, the PyTensor/PyMC bridge under the port's fakes:
+    demo_pymc, the data term at the flagship's width, the fusion rewrite
+    and the fed lane, every kernel-backed evaluation on ``dev``."""
+    from pytensor_federated_torch.ops.linreg_kernel import linreg_reductions
+
+    card = torch.device("cuda", 0) if torch.device(dev).type == "cuda" else torch.device("cpu")
+    shims = _bridge_fakes()
+    out, gates = {"phase": "bridge"}, {}
+    launches0 = linreg_reductions.launches
+    with shims.demo_pymc_under_torch_shims(card, cuda_graph=card.type == "cuda") as ns:
+        for lane, run in (("demo", lambda: _bridge_demo(ns, card, demo)),
+                          ("data_term", lambda: _bridge_data_term(ns, card, n_obs)),
+                          ("rewrite", lambda: _bridge_rewrite(ns, card, n_obs, timed))):
+            t0 = time.perf_counter()
+            lane_gates, out[lane] = run()
+            out[lane]["wall_s"] = time.perf_counter() - t0
+            gates.update({f"{lane}.{k}": v for k, v in lane_gates.items()})
+    t0 = time.perf_counter()
+    lane_gates, out["fed"] = _bridge_fed_lane(card, n_obs, slots, timed)
+    out["fed"]["wall_s"] = time.perf_counter() - t0
+    gates.update({f"fed.{k}": v for k, v in lane_gates.items()})
+    # The host counter over the phase, with the NUTS run's replays in
+    # place of its host count (a replay does not reach the counter; the
+    # graph check's eager calls are left out).
+    nuts = out["demo"]["nuts"]
+    out["kernel_launches"] = (linreg_reductions.launches - launches0 - nuts["check_launches"]
+                              - nuts["host_kernel_launches"] + nuts["kernel_launches"])
+    gates["kernel_launched"] = out["kernel_launches"] > 0 if card.type == "cuda" else True
+    out["gates"] = gates
+    return all(gates.values()), out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["kernels", "federated", "models", "samplers", "slice6",
                                            "slice7", "slice8", "slice9", "slice10", "slice11",
-                                           "slice12", "slice13", "slice14", "slice15", "slice16"],
+                                           "slice12", "slice13", "slice14", "slice15", "slice16",
+                                           "slice17"],
                         help="kernels: device, build and kernels only; federated: device, "
                              "build, nuts and federated only; models: device, build, radon, "
                              "logistic and lv_ode only; samplers: device, build, nuts, "
@@ -7455,12 +7948,16 @@ def main() -> int:
                              "multichain and seq only; slice13: device, build, nuts_large, "
                              "zero, parallel_axes, multihost and elastic only; slice14: "
                              "device, build and fed only; slice15: device, build, ppl and "
-                             "ppl_zero only; slice16: device, build and linalg only")
+                             "ppl_zero only; slice16: device, build and linalg only; "
+                             "slice17: device, build and bridge only")
     parser.add_argument("--multichain-seeds", default=",".join(map(str, MULTICHAIN_SEEDS)),
                         type=lambda v: tuple(int(x) for x in v.split(",")),
                         help="comma-separated seeds of the multichain phase's NUTS runs, "
                              "each gated (default: %(default)s); each seed after the first "
                              "adds 30 s to the phase's expected seconds")
+    parser.add_argument("--profiler-window", type=int, metavar="READINGS",
+                        help="instead of the phases, count how often the profiler leaves "
+                             "a kernel out of READINGS readings, padded and not")
     args = parser.parse_args()
     PHASE_EXPECTED_S["multichain"] += 30 * (len(args.multichain_seeds) - 1)
     t_script = time.perf_counter()
@@ -7473,6 +7970,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.profiler_window:
+        emit(profiler_window(args.profiler_window))
+        return 0
     subreaper = _become_subreaper()
 
     # The dense mass matrix's matvecs (nuts_large) are the port's only
@@ -7539,6 +8039,7 @@ def main() -> int:
         ("ppl", phase_ppl),
         ("ppl_zero", phase_ppl_zero),
         ("linalg", phase_linalg),
+        ("bridge", phase_bridge),
     ]
     if args.only == "kernels":
         phases = phases[:1]
@@ -7571,6 +8072,8 @@ def main() -> int:
         phases = [ph for ph in phases if ph[0] in SLICE15]
     elif args.only == "slice16":
         phases = [ph for ph in phases if ph[0] in SLICE16]
+    elif args.only == "slice17":
+        phases = [ph for ph in phases if ph[0] in SLICE17]
     all_ok, lines = True, {}
     for pname, fn in phases:
         t0 = time.perf_counter()
@@ -7640,10 +8143,12 @@ def main() -> int:
         # timed evaluations, FederatedLogpGrad's and FederatedLogp's; the
         # ppl and ppl_zero phases count theirs, 0: the kernel is not on
         # the ppl model's path; so does linalg, 0: the block stores and
-        # the fed ops compute outside the kernel, as in the JAX package).
+        # the fed ops compute outside the kernel, as in the JAX package;
+        # in the bridge phase over all of its lanes: demo_pymc's checks,
+        # MAP and NUTS, the data term, the rewrite and the fed lane).
         "launches": sum(lines[p].get("kernel_launches", 0)
                         for p in ("nuts", "nuts_large", "pool", "gateway", "optim", "multichain")
-                        + SLICE10 + SLICE13 + SLICE14 + SLICE15 + SLICE16)
+                        + SLICE10 + SLICE13 + SLICE14 + SLICE15 + SLICE16 + SLICE17)
                     + lines["federated"].get("nuts", {}).get("kernel_launches", 0),
         "cuda_launches_per_call": lines["kernels"].get("cuda_launches_per_call"),
         "shape": list(LARGE_PATH),

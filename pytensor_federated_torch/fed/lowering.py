@@ -53,7 +53,14 @@ import torch
 import torch.fx
 from torch.overrides import TorchFunctionMode
 
-from ..utils import resolve_device, tree_leaves, tree_map, tree_structure, value_and_grad
+from ..utils import (
+    resolve_device,
+    tree_leaves,
+    tree_map,
+    tree_structure,
+    value_and_first_grad,
+    value_and_grad,
+)
 from .batching import plan_windows
 from .placements import MapSpec, Placement, make_node_compute
 from .primitives import (
@@ -660,8 +667,8 @@ class FederatedLogpGrad:
       ``torch.func.vmap`` over a batch of chains).
     - ``__call__(*arrays) -> (logp, [grads])`` — the host
       ``LogpGradFn`` signature: numpy in, numpy out.
-    - :attr:`jax_fn` — the ``(logp, grads)`` callable under the name the
-      JAX package's bridge reads.
+    - :meth:`torch_fn` — the ``(logp, grads)`` callable that the bridge's
+      PyTorch lane (``federated_potential``) reads.
     - :meth:`node_compute` — the matching node-side deployment
       (``service.run_node(ev.node_compute(), ...)``) for pool lanes.
     """
@@ -703,9 +710,12 @@ class FederatedLogpGrad:
         """``(logp, grads)``, one gradient per parameter (a tuple)."""
         return value_and_grad(lambda ps: self._program(*ps), tuple(params))
 
-    def jax_fn(self, *params: Any) -> Tuple[Any, List[Any]]:
-        """``(logp, grads)`` for the bridge's lane."""
-        logp, grads = self.logp_and_grad(*params)
+    def torch_fn(self, *params: Any) -> Tuple[Any, List[Any]]:
+        """``(logp, grads)`` for the bridge's PyTorch lane: ``logp`` keeps
+        its autograd graph to ``params`` (a sampler's backward through a
+        model that contains the potential reaches it), ``grads`` are first
+        order."""
+        logp, grads = value_and_first_grad(lambda ps: self._program(*ps), tuple(params))
         return logp, list(grads)
 
     def __call__(self, *arrays: Any) -> Tuple[Any, List[Any]]:

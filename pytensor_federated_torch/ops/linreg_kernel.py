@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Any, Callable, Dict, Sequence, Tuple, Union
 
 import torch
@@ -125,6 +126,9 @@ def _kernel_lib() -> ctypes.CDLL:
 # ticket at 0, as the previous call's last block left it; calls on two
 # streams may overlap and use two tickets.
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+# Several threads may launch at once (the bridge's fused op runs each
+# member on its own thread): the launch count is a read-modify-write.
+_count_lock = threading.Lock()
 
 
 def _launch(
@@ -185,7 +189,8 @@ def _launch(
         raise RuntimeError(
             f"linreg_reductions launch failed: {lib.linreg_error_string(err).decode()}"
         )
-    linreg_reductions.launches += 1
+    with _count_lock:
+        linreg_reductions.launches += 1
     return out.reshape(batch + (S + 1, 4))
 
 

@@ -201,12 +201,12 @@ class TestEquivalenceGate:
         ref = _jax_dense(x, y, params)
         np.testing.assert_allclose(float(v), ref[0], rtol=RTOL)
         np.testing.assert_allclose(g.numpy(), ref[1], rtol=GTOL)
-        # The host surface: numpy in, (logp, [grads]) out; and jax_fn.
+        # The host surface: numpy in, (logp, [grads]) out; and torch_fn.
         lp, (g_host,) = ev(params)
         assert isinstance(lp, np.ndarray) and isinstance(g_host, np.ndarray)
         np.testing.assert_allclose(float(lp), ref[0], rtol=RTOL)
         np.testing.assert_allclose(g_host, ref[1], rtol=GTOL)
-        lp2, grads2 = ev.jax_fn(torch.as_tensor(params))
+        lp2, grads2 = ev.torch_fn(torch.as_tensor(params))
         assert float(lp2) == float(lp) and np.array_equal(grads2[0].numpy(), g_host)
 
     def test_chain_batch_through_each_lane(self, data, params, pool_client):

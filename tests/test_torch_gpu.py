@@ -1456,3 +1456,50 @@ def test_linalg_fed_ops_on_a_mesh_of_the_card_match_float64_on_the_cpu():
     l = np.linalg.cholesky(s)
     sol = linalg.triangular_solve(l, x, block=16, placement=placement, n_shards=4, device=card)
     np.testing.assert_allclose(sol.cpu().numpy(), np.linalg.solve(l, x), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.gpu
+def test_probe_builds_and_launches_the_kernel_on_the_card():
+    """``probe_backend(try_kernel=True)`` finds the card live and the
+    kernel built, launched and right; ``ensure_live_backend`` returns
+    that the kernel ran."""
+    from pytensor_federated_torch import utils
+
+    _cuda()
+    assert utils.probe_backend(try_kernel=True) == (True, True)
+    assert utils.ensure_live_backend() is True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_obs", [64, 131_072])
+def test_demo_pymc_torch_lane_on_the_card_matches_its_plain_version(n_obs):
+    """The demo's data term (``make_federated_data_logp``'s torch lane) on
+    the card — one kernel launch for value and gradients — against the
+    kernel's plain version in float64 on the CPU at the flagship's data:
+    value within rtol 1e-5, gradients within 1e-4 |g| + 1e-5 max|g|;
+    the logp's backward gives the returned gradients."""
+    from pytensor_federated_torch.demos.demo_pymc import make_federated_data_logp
+    from pytensor_federated_torch.models.linear import generate_node_data
+
+    dev = _cuda()
+    data, offsets = generate_node_data(8, n_obs=n_obs, seed=123, device=dev)
+    torch_fn, _ = make_federated_data_logp(data)
+    ins = [torch.tensor(1.55 + offsets, dtype=torch.float32, device=dev),
+           torch.tensor(1.9, device=dev), torch.tensor(0.55, device=dev)]
+    ins = [t.requires_grad_(True) for t in ins]
+    before = linreg_reductions.launches
+    logp, grads = torch_fn(*ins)
+    assert linreg_reductions.launches == before + 1
+    (x, y), mask = data.tree()
+    A, slope, sigma = (t.detach().cpu().double() for t in ins)
+    ll, gmu, gx, gz = linreg_reductions_ref(
+        (torch.zeros((), dtype=torch.float64), slope, torch.log(sigma)), A,
+        *(t.cpu().double() for t in (x, y, mask)))
+    np.testing.assert_allclose(float(logp.detach()), float(ll.sum()), rtol=1e-5)
+    for got, want in zip(grads, (gmu, gx.sum(), gz.sum() / sigma)):
+        got = got.cpu().double()
+        tol = 1e-4 * want.abs() + 1e-5 * float(want.abs().max())
+        assert bool(((got - want).abs() <= tol).all()), (got, want)
+    back = torch.autograd.grad(logp, ins)
+    for b, g in zip(back, grads):
+        torch.testing.assert_close(b, g, rtol=1e-6, atol=1e-6)

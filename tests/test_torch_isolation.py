@@ -22,20 +22,31 @@ SUBPACKAGES = (
     "wrappers", "fanout_exec", "models", "parallel", "samplers", "precision",
     "flopcount", "_assoc_scan", "gateway", "ppl", "checkpoint", "demos", "demos.demo_node",
     "demos.demo_model", "optim", "diagnostics", "fed", "fed.primitives", "fed.placements",
-    "fed.lowering", "fed.batching", "bridge", "bridge.grouping", "parallel.federated",
+    "fed.lowering", "fed.batching", "bridge", "bridge.grouping", "bridge.core",
+    "bridge.fanout_exec", "demos.demo_pymc", "parallel.federated",
     "ppl.distributions", "ppl.handlers", "ppl.radon", "ppl.compiler", "ppl.svi", "version",
     "linalg", "linalg.blocks", "linalg.service", "linalg.ops",
 )
 
 
+#: Port modules that import ``pytensor`` at their top, as their JAX twins
+#: do: they cannot be imported where PyTensor is not installed (here and
+#: on the GPU host).  They run under the port's fake pytensor instead
+#: (``tests/torch_pytensor_shim.py``; ``test_the_ports_fakes_load_no_jax``
+#: below walks them there).
+NEEDS_PYTENSOR = ("bridge.pytensor_ops", "bridge.fusion")
+
+
 def test_importing_the_port_loads_no_jax():
     """In a fresh interpreter, importing the port and every submodule
-    leaves JAX, the JAX package and gRPC out of ``sys.modules``."""
+    (the two that need PyTensor aside) leaves JAX, the JAX package and
+    gRPC out of ``sys.modules``."""
     modules = sorted(
         "pytensor_federated_torch." + ".".join(p.relative_to(ROOT / "pytensor_federated_torch").with_suffix("").parts)
         for p in PORT_FILES[:-1]
         if p.name != "__init__.py"
     )
+    modules = [m for m in modules if m not in {"pytensor_federated_torch." + n for n in NEEDS_PYTENSOR}]
     code = (
         "import importlib, sys\n"
         "assert not any(m.split('.')[0] in {forbidden} for m in sys.modules), 'preloaded'\n"
@@ -407,3 +418,81 @@ def test_models_export_every_name_of_the_jax_models():
     ``generate_ar1_data`` none is missing."""
     jax_all = _all_of(ROOT / "pytensor_federated_tpu" / "models" / "__init__.py")
     assert [n for n in jax_all if not hasattr(pft.models, n)] == []
+
+
+def test_bridge_without_pytensor_is_gated():
+    """Where PyTensor is missing, ``import pytensor_federated_torch.bridge``
+    succeeds with ``HAS_PYTENSOR`` false, every gated name raises
+    ``ImportError`` on access, and the grouping algorithm (which the
+    ``fed`` window planner imports) stays importable."""
+    code = (
+        "import sys\n"
+        "sys.modules['pytensor'] = None  # as on a host without pytensor\n"
+        "import pytensor_federated_torch.bridge as b\n"
+        "from pytensor_federated_torch.bridge.grouping import group_independent\n"
+        "errors = []\n"
+        f"for name in {_GATED!r}:\n"
+        "    try:\n"
+        "        getattr(b, name)\n"
+        "        errors.append('no error')\n"
+        "    except ImportError as e:\n"
+        "        errors.append('PyTensor' in str(e))\n"
+        "print(b.HAS_PYTENSOR, b.__all__, errors, callable(b.group_independent))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == f"False ['HAS_PYTENSOR'] {[True] * len(_GATED)} True", out.stdout
+
+
+_GATED = (
+    "FederatedArraysToArraysOp", "FederatedFusionRewriter", "FederatedLogpGradOp",
+    "FederatedLogpOp", "ParallelFederatedOp", "federated_potential",
+)
+#: Names that speak of the backend: the JAX package's name, the port's.
+RENAMED = {"member_jax_callable": "member_torch_callable",
+           "fused_jax_callable": "fused_torch_callable"}
+
+
+def _all_lists(path: Path) -> list:
+    """Every literal ``__all__`` assigned anywhere in a module (both
+    branches of the bridge's import gate), in source order."""
+    return [ast.literal_eval(node.value) for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.Assign)
+            and any(isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets)]
+
+
+@pytest.mark.parametrize("module", ["__init__", "core", "pytensor_ops", "fusion", "fanout_exec"])
+def test_bridge_exports_the_jax_packages_names(module):
+    """``bridge``'s ``__all__`` (with PyTensor and without) and that of
+    ``bridge.core``, ``pytensor_ops``, ``fusion`` and ``fanout_exec`` are
+    the JAX package's, name for name, with the backend's renamed pairs
+    (``RENAMED``) swapped."""
+    jax_lists = _all_lists(ROOT / "pytensor_federated_tpu" / "bridge" / f"{module}.py")
+    port_lists = _all_lists(ROOT / "pytensor_federated_torch" / "bridge" / f"{module}.py")
+    assert jax_lists
+    assert port_lists == [[RENAMED.get(n, n) for n in names] for names in jax_lists]
+
+
+def test_the_ports_fakes_load_no_jax():
+    """In a fresh interpreter, the port's fake pytensor and pymc
+    (``tests/torch_pytensor_shim.py``, ``tests/torch_pymc_shim.py``, which
+    ``chip_smoke.py`` uses too) install, import the port's bridge glue
+    (``NEEDS_PYTENSOR``) and ``demos.demo_pymc`` under them, and leave
+    JAX, the JAX package and gRPC out of ``sys.modules``."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import torch_pymc_shim\n"
+        "with torch_pymc_shim.demo_pymc_under_torch_shims('cpu') as ns:\n"
+        f"    for name in {list(NEEDS_PYTENSOR)!r}:\n"
+        "        importlib.import_module('pytensor_federated_torch.' + name)\n"
+        "    ok = ns.bridge.bridge.HAS_PYTENSOR and callable(ns.demo.main)\n"
+        f"print('BAD', ok, sorted(m for m in sys.modules if m.split('.')[0] in {set(FORBIDDEN)}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD True []" in out.stdout, out.stdout
